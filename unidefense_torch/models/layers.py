@@ -1,0 +1,169 @@
+"""Shared building blocks (unidefense_tpu/models/layers.py).
+
+Modules take and return NCHW tensors (kept in ``channels_last`` memory
+format by the models). Parameters are fp32; each layer casts to its compute
+``dtype`` where the JAX layer does: convs cast input and weight, the norms
+compute in fp32 and cast back, the SFConv frequency branch is cast to fp32
+before pooling. Parameter names follow the reference's torch modules so the
+state dicts of ``models/convert.py`` load strictly.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from unidefense_torch.device import nchw, nhwc, optional_dtype
+from unidefense_torch.ops.resize import adaptive_avg_pool
+from unidefense_torch.ops.sfconv_cuda import sfconv_freq
+
+Padding = Union[str, int]
+
+
+def same_pad(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """TF-static SAME padding (XLA 'SAME'): pad_total = max((ceil(i/s)-1)*s +
+    k - i, 0), low half = pad_total // 2, the rest high."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):  # F.pad order: W first, then H
+        total = max((math.ceil(size / stride) - 1) * stride + kernel_size - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+class Conv(nn.Conv2d):
+    """Conv2d with ``padding='SAME'`` (TF static) or int symmetric padding,
+    computing in ``dtype`` (layers.py:45-75)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: Padding = 0, groups: int = 1, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        self.same = padding == "SAME"
+        super().__init__(in_ch, out_ch, kernel_size, stride,
+                         padding=0 if self.same else padding, groups=groups, bias=bias)
+        self.compute_dtype = optional_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if self.same:
+            x = same_pad(x, self.kernel_size[0], self.stride[0])
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                        groups=self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm with running stats, computed in fp32 and cast to
+    ``dtype`` (layers.py:78-137). Works on (N, C) and (N, C, H, W).
+    ``frozen_bias`` keeps a zero bias that is not trained, as the reference's
+    bottleneck does."""
+
+    def __init__(self, features: int, eps: float = 1e-5, frozen_bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=not frozen_bias)
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("train-mode BatchNorm arrives with the training slice")
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = (self.weight * torch.rsqrt(self.running_var + self.eps)).view(shape)
+        y = (x.float() - self.running_mean.view(shape)) * scale + self.bias.view(shape)
+        return y.to(self.compute_dtype or x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """nn.InstanceNorm2d(affine=True) semantics in fp32: biased variance,
+    eps 1e-5 (layers.py:140-159)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = dtype
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return y.to(self.compute_dtype or x.dtype)
+
+
+class Classifier(nn.Module):
+    """Linear head, N(0, 0.01) weights and zero bias (layers.py:162-176)."""
+
+    def __init__(self, in_features: int, num_classes: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.fc = nn.Linear(in_features, num_classes)
+        nn.init.normal_(self.fc.weight, std=0.01)
+        nn.init.zeros_(self.fc.bias)
+        self.compute_dtype = optional_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.fc.weight.to(dt), self.fc.bias.to(dt))
+
+
+class SFConv(Conv):
+    """Spatial-frequency convolution (layers.py:194-270): a KxK spatial conv
+    blended by sigmoid(sf_coef) with the frequency branch (a dense 1x1 conv
+    over the packed 2C spectrum, evaluated in its exact spatial closed form by
+    ``sfconv_freq``), average-pooled to the spatial output when strided.
+
+    Parameter names follow the reference: ``weight`` (the spatial conv),
+    ``freq_conv.weight`` (2C, 2C, 1, 1) and the scalar ``sf_coef``."""
+
+    def __init__(self, channels: int, kernel_size: int, stride: int = 1,
+                 padding: Padding = 0, groups: int = 1, bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(channels, channels, kernel_size, stride, padding, groups, bias,
+                         dtype=dtype)
+        self.freq_conv = nn.Conv2d(2 * channels, 2 * channels, 1, bias=False)
+        self.sf_coef = nn.Parameter(torch.tensor(-10.0))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spat = super().forward(x)
+        xc = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
+        # rows of w_packed are packed input channels: the (out, in) conv weight, transposed
+        w_packed = self.freq_conv.weight[:, :, 0, 0].t()
+        freq = sfconv_freq(nhwc(xc), w_packed).float()
+        if freq.shape[1:3] != spat.shape[2:4]:
+            freq = adaptive_avg_pool(freq, spat.shape[2], spat.shape[3])
+        freq = nchw(freq).to(spat.dtype)
+        coef = torch.sigmoid(self.sf_coef).to(spat.dtype)
+        return (1.0 - coef) * spat + coef * freq
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """torch ConvTranspose2d (k3, s2, p1, op1 in the decoders) computing in
+    ``dtype`` (layers.py:273-314); weight layout (in, out, kh, kw)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 2,
+                 padding: int = 1, output_padding: int = 1, bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, output_padding,
+                         bias=bias)
+        self.compute_dtype = optional_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding)

@@ -1,0 +1,144 @@
+"""UniDefense with EfficientNet (UDEB4), eval forward
+(unidefense_tpu/models/unidefense.py:51-208).
+
+Encoder backbone -> spatial decoder reconstructing the input -> dual-space
+attention re-weighting of a mid-level embedding -> remaining blocks ->
+frozen-bias BN bottleneck -> linear classifier; the reconstruction losses
+(pixel and rFFT space) are computed in the forward pass. Tensors are NCHW in
+channels_last; ``rec`` and the masks come back NCHW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from unidefense_torch.device import nchw, nhwc
+from unidefense_torch.models.efficientnet import EfficientNet
+from unidefense_torch.models.filters import DynamicFilter, dual_space_attention
+from unidefense_torch.models.layers import BatchNorm, Classifier, Conv, ConvTranspose, InstanceNorm
+from unidefense_torch.ops.fft import spectrum_channels
+from unidefense_torch.ops.resize import bilinear_resize
+
+# EfficientNet-b4 block delimiters (reference model/unidefense.py:22-24)
+DELIMITER_DICT = {"efficientnet-b4": [2, 6, 10, 16, 22, 30, 32]}
+
+
+class _Act(nn.Module):
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class DecoderBlock(nn.Sequential):
+    """conv3x3 -> IN -> act -> convT(x2) -> IN -> act -> conv3x3 -> IN -> act
+    [-> conv3x3 -> tanh if final]; indices 0-10 as in the reference's
+    nn.Sequential decoders."""
+
+    def __init__(self, in_ch: int, features: int, out_features: Optional[int] = None,
+                 final: bool = False, use_swish: bool = False, bias: bool = False,
+                 affine: bool = True, dtype: Optional[torch.dtype] = None):
+        act = F.silu if use_swish else F.relu
+        out_f = out_features or features
+        layers = [
+            Conv(in_ch, features, 3, 1, 1, bias=bias, dtype=dtype),
+            InstanceNorm(features, affine=affine, dtype=dtype), _Act(act),
+            ConvTranspose(features, features, 3, 2, 1, 1, bias=bias, dtype=dtype),
+            InstanceNorm(features, affine=affine, dtype=dtype), _Act(act),
+            Conv(features, out_f, 3, 1, 1, bias=bias, dtype=dtype),
+            InstanceNorm(out_f, affine=affine, dtype=dtype), _Act(act),
+        ]
+        if final:
+            layers += [Conv(out_f, 3, 3, 1, 1, bias=bias, dtype=dtype), _Act(torch.tanh)]
+        super().__init__(*layers)
+
+
+def _recon_losses(rec: torch.Tensor, x: torch.Tensor, freq_norm: str):
+    """Per-sample L1 reconstruction error in pixel and rFFT space; NHWC in,
+    rec resized to x's resolution first."""
+    rec = bilinear_resize(rec, x.shape[1], x.shape[2])
+    spatial = (rec.float() - x.float()).abs().mean(dim=(1, 2, 3))
+    diff = (spectrum_channels(rec, freq_norm) - spectrum_channels(x, freq_norm)).abs()
+    c = diff.shape[-1] // 2
+    freq = (diff[..., :c] + diff[..., c:]).mean(dim=(1, 2, 3))
+    return rec, spatial, freq
+
+
+class UniDefenseModelEb4(nn.Module):
+    """UniDefense with an EfficientNet backbone. ``forward(x, noise_x=None)``
+    returns {'cls_out', 'rec', 'loss_dict'} with loss_dict = {factorization,
+    triplet (list of 3), freq_mask, spat_mask, spatial, freq}. Eval only:
+    the dropouts and drop-connect are training features."""
+
+    def __init__(self, extractor: str = "efficientnet-b4", num_classes: int = 2,
+                 drop_rate: float = 0.2, drop_connect_rate: float = 0.2,
+                 feat_drop_rate: float = 0.2, use_bias: bool = False, affine: bool = True,
+                 delimiter: Optional[Sequence[int]] = None, freq_norm: str = "ortho",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.freq_norm = freq_norm
+        self.compute_dtype = dtype
+        self.drop_rate = drop_rate
+        self.feat_drop_rate = feat_drop_rate
+        self.backbone = EfficientNet(extractor, freq_norm, drop_connect_rate, dtype)
+        self.delimiter = list(delimiter or DELIMITER_DICT[extractor])
+        specs = self.backbone.specs
+        d = self.delimiter
+        c_b4 = specs[d[4] - 1].output_filters   # decoder input
+        c_b5 = specs[d[5] - 1].output_filters   # attention embedding
+        kw = dict(bias=use_bias, affine=affine, use_swish=True, dtype=dtype)
+        self.dec_block1 = DecoderBlock(c_b4, 80, **kw)
+        self.dec_block2 = DecoderBlock(80, 40, **kw)
+        self.dec_block3 = DecoderBlock(40, 20, final=True, **kw)
+        self.freq_filter = DynamicFilter(2 * c_b5, 6, 1, F.silu, use_bias, dtype)
+        self.spat_filter = DynamicFilter(c_b5, 3, 3, F.silu, use_bias, dtype)
+        self.fuse_coef = nn.Parameter(torch.tensor(0.0))
+        self.bottleneck = BatchNorm(self.backbone.head_filters, frozen_bias=True, dtype=dtype)
+        self.classifier = Classifier(self.backbone.head_filters, num_classes, dtype)
+
+    def _block(self, x: torch.Tensor, block_id: int) -> torch.Tensor:
+        start = self.delimiter[block_id - 1] if block_id > 0 else 0
+        return self.backbone.block_range_forward(x, start, self.delimiter[block_id])
+
+    def forward(self, x: torch.Tensor, noise_x: Optional[torch.Tensor] = None) -> dict:
+        if self.training:
+            raise NotImplementedError("the training forward arrives with the training slice")
+        if noise_x is None:
+            noise_x = x
+        h = self.backbone.stem_forward(noise_x)
+        x_b0 = self._block(h, 0)
+        x_b1 = self._block(x_b0, 1)
+        x_b2 = self._block(x_b1, 2)
+        x_b3 = self._block(x_b2, 3)
+        x_b4 = self._block(x_b3, 4)
+
+        dec_out1 = self.dec_block1(x_b4)
+        dec_out2 = self.dec_block2(dec_out1)
+        dec_out3 = self.dec_block3(dec_out2)
+
+        x_b5 = self._block(x_b4, 5)
+        att = dual_space_attention(self.freq_filter, self.spat_filter, self.fuse_coef,
+                                   dec_out3.detach(), x, x_b5, self.freq_norm,
+                                   self.compute_dtype)
+        x_out = self._block(att["out"], 6)
+        x_out = self.backbone.head_forward(x_out)
+        x_out = self.bottleneck(x_out.mean(dim=(2, 3)))
+
+        loss_dict = {
+            "factorization": x_out,
+            "triplet": [x_b4.mean(dim=(2, 3)), dec_out1.mean(dim=(2, 3)),
+                        dec_out2.mean(dim=(2, 3))],
+            "freq_mask": att["freq_mask"],
+            "spat_mask": att["spat_mask"],
+        }
+        cls_out = self.classifier(x_out)
+        rec, spatial, freq = _recon_losses(nhwc(dec_out3), nhwc(x), self.freq_norm)
+        loss_dict["spatial"] = spatial
+        loss_dict["freq"] = freq
+        return {"cls_out": cls_out, "rec": nchw(rec), "loss_dict": loss_dict}

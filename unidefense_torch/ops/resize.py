@@ -1,0 +1,33 @@
+"""Resize / pooling on NHWC tensors (unidefense_tpu/ops/resize.py:67-85).
+
+torch's own operators carry the reference semantics directly
+(``F.interpolate(bilinear, align_corners=True)``, ``F.adaptive_avg_pool2d``),
+so the JAX package's separable interpolation matrices are not needed.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from unidefense_torch.device import nchw, nhwc
+
+
+def bilinear_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """NHWC bilinear resize with align_corners=True."""
+    if tuple(x.shape[1:3]) == (out_h, out_w):
+        return x
+    y = F.interpolate(nchw(x), size=(out_h, out_w), mode="bilinear", align_corners=True)
+    return nhwc(y)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """NHWC adaptive average pool (torch window rule)."""
+    if tuple(x.shape[1:3]) == (out_h, out_w):
+        return x
+    return nhwc(F.adaptive_avg_pool2d(nchw(x), (out_h, out_w)))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NC spatial mean."""
+    return x.mean(dim=(1, 2))
