@@ -5,13 +5,18 @@
     python3 chip_smoke.py --quick    # build, then run and check each kernel once
 
 Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
-(normalize_flip) and K2 (sfconv_freq forward) against their plain PyTorch
-versions on the card at the shapes the serving path gives them, timing
-both; serve UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with
-seeded random weights and check that every batch went through both kernels;
-compare the card's fp32 and bf16 Predictor with the CPU Predictor. Any
-failure raises, so the exit code is not 0 and no result line is printed.
-The last line is the result object; the line before it the kernel table.
+(normalize_flip), K2 (sfconv_freq forward) and K2-bwd (its weight sums,
+with K2 on the gradient for x_bar) against their plain PyTorch versions on
+the card at the shapes the serving and training paths give them, timing
+each; serve UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with
+seeded random weights and check that every batch went through K1 and K2;
+compare the card's fp32 and bf16 Predictor with the CPU Predictor; train
+UDEB4 at 380x380, 10 real + 10 fake, bf16, with the two-pass step and the
+optimizer of config_template/forgery/model_udeb4.yml, checking every step's
+launches of K1, K2 and K2-bwd; compare one fp32 training step on the card
+with the same step on the CPU. Any failure raises, so the exit code is not
+0 and no result line is printed. The last line is the result object; the
+line before it the kernel table.
 """
 
 from __future__ import annotations
@@ -27,6 +32,18 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
 SEED = 0
+
+# config_template/forgery/model_udeb4.yml (model and config sections) and
+# data_ffc23.yml (num_steps, 380x380, train_batch_size 10 real + 10 fake)
+UDEB4_MODEL = {"num_classes": 2, "drop_rate": 0.2, "extractor": "efficientnet-b4"}
+UDEB4_CONFIG = {
+    "warmup_step": 0, "lambda_triplet": 0.1, "lambda_recons": 0.1, "lambda_freq": 1.0,
+    "lambda_mask": 0.1, "lambda_fac": 0.1,
+    "optimizer": {"name": "adamw", "lr": 1e-4, "betas": [0.9, 0.999], "weight_decay": 5e-6,
+                  "amsgrad": True},
+    "scheduler": {"name": "StepLR", "step_size": 22500, "gamma": 0.5},
+}
+NUM_STEPS = 90000
 
 # (H=W, C, launches per UDEB4 forward) of every SFConv frequency branch
 SFCONV_SHAPES = {
@@ -165,6 +182,71 @@ def phase_k2(quick: bool, card: str) -> dict:
     return dict(max_abs_err=worst_abs, **per_forward)
 
 
+def _k2_bwd_bound_ms(n, h, w, c) -> tuple[float, str]:
+    # K2-bwd alone: the four C x C weight sums over N*H*W pixel rows and one
+    # Hilbert product hm@x per image row; reads x and g once (bf16), writes
+    # the (4C, C) fp32 sums
+    flops = n * h * (8 * w * c * c + 2 * w * w * c)
+    nbytes = 2 * n * h * w * c * 2 + 4 * c * c * 4
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k2_bwd(quick: bool, card: str) -> dict:
+    """K2-bwd at every SFConv shape of 380^2 and 256^2, batch 20 (the
+    training batch): x_bar (K2 on the gradient) and w_bar (K2-bwd and the
+    repack) in bf16 and fp32 against the plain version in fp32."""
+    import torch
+
+    from unidefense_torch.ops.sfconv_cuda import (
+        _launch_dw, sfconv_freq_bwd, sfconv_freq_bwd_plain, weight_sums_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst, per_bwd = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "whole_ms": 0.0}
+    for res, shapes in SFCONV_SHAPES.items():
+        for hw, c, per_fwd in shapes:
+            x = torch.randn(20, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+            g = torch.randn(20, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+            w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
+            ref_x, ref_w = sfconv_freq_bwd_plain(x.float(), g.float(), w)
+            got_x, got_w = sfconv_freq_bwd(x, g, w)
+            got32_x, got32_w = sfconv_freq_bwd(x.float(), g.float(), w)
+            torch.cuda.synchronize()
+            errs = []
+            for name, ref, got, got32 in (("x_bar", ref_x, got_x, got32_x),
+                                          ("w_bar", ref_w, got_w, got32_w)):
+                scale = ref.abs().max().item()
+                rel, rel32 = ((a.float() - ref).abs().max().item() / scale for a in (got, got32))
+                errs.append(f"{name} bf16 {rel:.3g} fp32 {rel32:.3g}")
+                worst = max(worst, rel * scale)
+                if not (rel <= 2e-2 and rel32 <= 1e-4):
+                    raise AssertionError(f"K2-bwd {hw}^2/C{c} {name}: bf16 rel err {rel}, "
+                                         f"fp32 rel err {rel32}, max |ref| {scale}")
+            head = (f"[K2-bwd] 20x{hw}x{hw}x{c} ({res}^2, x{per_fwd}/bwd): error over max |ref| "
+                    f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4)")
+            if quick:
+                log(head + " ok")
+                continue
+            ms = time_ms(lambda: _launch_dw(x, g), warmup=2, iters=10)
+            plain = time_ms(lambda: weight_sums_plain(x, g), warmup=2, iters=10)
+            whole = time_ms(lambda: sfconv_freq_bwd(x, g, w), warmup=2, iters=10)
+            bound, by = _k2_bwd_bound_ms(20, hw, hw, c)
+            log(f"{head}; K2-bwd kernel {ms:.4f} ms, plain(bf16) {plain:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}); whole backward (x_bar + K2-bwd + repack) {whole:.4f} ms, "
+                f"{card}")
+            if res == 380:
+                for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                               ("whole_ms", whole)):
+                    per_bwd[key] += per_fwd * v
+            del x, g, w, ref_x, ref_w, got_x, got_w, got32_x, got32_w
+    if not quick:
+        log(f"[K2-bwd] per UDEB4 backward at 380^2 b20 (24 launches): K2-bwd kernel "
+            f"{per_bwd['ms']:.3f} ms, plain {per_bwd['plain_ms']:.3f} ms, bound "
+            f"{per_bwd['bound_ms']:.3f} ms; whole backward {per_bwd['whole_ms']:.3f} ms, {card}")
+    return dict(max_abs_err=worst, **{k: v for k, v in per_bwd.items() if k != "whole_ms"})
+
+
 def seeded_weights(card: str) -> dict:
     """UDEB4 state_dict from seeded random weights, set so that the network
     keeps its scale and does not amplify rounding:
@@ -263,32 +345,34 @@ def phase_serve(card: str, weights: dict) -> tuple[int, int]:
         f"p50 {per_request:.2f} ms per request ({per_request / 2:.2f} ms per batch), peak memory "
         f"{peak:.3f} GiB, launches K1 {k1} K2 {k2} over {batches} batches, probs in "
         f"[{p.min():.4f}, {p.max():.4f}], {card}")
-    phase_profile(card, pred, requests[0][:32])
+    phase_profile(card, "one batch 380^2 b32 bf16", lambda: pred.predict_frames(requests[0][:32]))
     return k1, k2
 
 
-# kernel-name fragments -> group of the serving breakdown, first match wins
+# kernel-name fragments -> group of the device-time breakdown, first match wins
 KERNEL_GROUPS = (
+    ("K2-bwd weight sums", ("dw_wmma", "dw_fma", "reduce_splits")),
     ("K2 channel mix", ("sfconv_mix_wmma", "sfconv_freq_fwd_kernel")),
-    ("K2 Hilbert rows", ("hilbert_rows",)),
+    ("Hilbert rows (K2, K2-bwd)", ("hilbert_rows",)),
     ("K1 normalize_flip", ("normalize_flip",)),
-    ("cuDNN convolutions", ("conv", "xmma", "implicit_gemm", "cudnn")),
+    ("cuDNN convolutions", ("conv", "xmma", "implicit_gemm", "cudnn", "dgrad", "wgrad")),
     ("cuFFT", ("fft", "regular_fft", "vector_fft")),
     ("GEMM", ("gemm", "cutlass", "cublas")),
+    ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
     ("copies and memsets", ("memcpy", "memset")),
 )
 
 
-def phase_profile(card: str, pred, frames) -> None:
-    """Device time of one serving batch by kernel group (torch.profiler),
-    and the device's busy share of the batch's wall time."""
+def phase_profile(card: str, label: str, fn) -> None:
+    """Device time of one call of ``fn`` by kernel group (torch.profiler),
+    and the device's busy share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_frames(frames)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -303,8 +387,8 @@ def phase_profile(card: str, pred, frames) -> None:
         groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(groups.values())
     parts = ", ".join(f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
-    log(f"[profile] one batch 380^2 b32 bf16: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-        f"(busy share {busy / wall_ms:.3f}); {parts}; {card}")
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"(busy share {busy / wall_ms:.3f}), {len(kernels)} kernels; {parts}; {card}")
 
 
 def phase_parity(card: str, weights: dict) -> None:
@@ -333,6 +417,145 @@ def phase_parity(card: str, weights: dict) -> None:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+def _groups_of(model) -> dict:
+    """Parameter groups, each of which must move in a train step; the
+    SFConv frequency kernels (trained through K2-bwd) are a group of their
+    own."""
+    groups: dict = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        parts = name.split(".")
+        key = parts[0] if parts[0] != "backbone" else ".".join(parts[:2])
+        if key == "backbone._blocks":
+            key = "backbone._blocks (" + ("freq_conv" if "freq_conv" in name else "other") + ")"
+        groups.setdefault(key, []).append(p)
+    return groups
+
+
+def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
+    import numpy as np
+    import torch
+
+    frames = np.random.default_rng(seed).integers(0, 256, (n_real + n_fake, size, size, 3),
+                                                  dtype=np.uint8)
+    labels = torch.tensor([0] * n_real + [1] * n_fake)
+    return {"image": torch.from_numpy(frames).to(device), "label": labels.to(device)}
+
+
+def phase_train(card: str, weights: dict) -> tuple[int, int, int]:
+    """The port's two-pass UDEB4 step at 380^2, 10 real + 10 fake, bf16, the
+    YAML's optimizer and drop rates: 2 warm-up steps, then 5 timed steps,
+    each checked for exactly 1 K1, 96 K2 and 48 K2-bwd launches."""
+    import torch
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.ops.preprocess import normalize_flip
+    from unidefense_torch.ops.sfconv_cuda import sfconv_freq, sfconv_freq_bwd
+    from unidefense_torch.train.optim import build_optimizer
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    model = build_model("UDEB4", UDEB4_MODEL, dtype=torch.bfloat16)
+    model.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(UDEB4_CONFIG)
+    state = create_train_state(model, tx)
+    step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 10, 10,
+                           preprocess=DevicePipeline(hflip_p=0.5))
+    batch = _train_batch(10, 10, 380, SEED + 5, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for _ in range(2):  # warm-up: cuDNN plans, the allocator
+        step(state, batch, gen)
+    groups = _groups_of(state.model)
+    before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, counts = [], [], (0, 0, 0)
+    for _ in range(5):
+        normalize_flip.launches = sfconv_freq.launches = sfconv_freq_bwd.launches = 0
+        t0 = time.perf_counter()
+        _, metrics, cls_out = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = (normalize_flip.launches, sfconv_freq.launches, sfconv_freq_bwd.launches)
+        if got != (1, 96, 48):
+            raise AssertionError(f"launches per step K1, K2, K2-bwd = {got}; expected (1, 96, 48)")
+        counts = tuple(a + b for a, b in zip(counts, got))
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(v == v and abs(v) < float("inf") for v in vals.values()) or \
+                not bool(torch.isfinite(cls_out).all()):
+            raise AssertionError(f"non-finite training output: {vals}")
+        losses.append(vals)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {k: [bool((p.detach() != b).any()) for p, b in zip(ps, before[k])]
+             for k, ps in groups.items()}
+    frozen = [k for k, m in moved.items() if not any(m)]
+    if frozen:
+        raise AssertionError(f"parameter groups that did not move: {frozen}")
+    still = sum(m.count(False) for m in moved.values())
+    ms = statistics.median(times) * 1e3
+    log(f"[train] UDEB4 380^2 b10+10 bf16 two-pass step, adamw amsgrad: {100 / sum(times):.2f} "
+        f"img/s over 5 steps, p50 {ms:.2f} ms per step (steps {[round(t * 1e3, 2) for t in times]}"
+        f" ms), peak memory {peak:.3f} GiB, launches per step K1 1 K2 96 K2-bwd 48 (total "
+        f"{counts}), all {len(groups)} parameter groups moved ({still} of "
+        f"{sum(map(len, moved.values()))} tensors did not), {card}")
+    log(f"[train] losses step 1: {losses[0]}; step 5: {losses[-1]}")
+    phase_profile(card, "one train step 380^2 b10+10 bf16", lambda: step(state, batch, gen))
+    return counts
+
+
+def phase_train_parity(card: str, weights: dict) -> None:
+    """One deterministic two-pass step of UDEB4 at 256^2, 2 real + 2 fake,
+    fp32 on the card (K1, K2 and K2-bwd in fp32) against the same step on
+    the CPU, from the same weights and draws: every loss, and each
+    parameter's gradient (pass-1 plus pass-2, as update 2 applies it) by
+    the norm."""
+    import dataclasses
+
+    import torch
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.train.optim import build_optimizer
+    from unidefense_torch.train.perturb import PerturbDraws
+    from unidefense_torch.train.step import StepDraws, create_train_state, make_train_step
+
+    cfg = dict(UDEB4_MODEL, drop_rate=0.0, drop_connect_rate=0.0, feat_drop_rate=0.0)
+    # the frequency style branch: CORAL, the FFT amplitude mix, the most code
+    draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 7), 2, 2, (4, 256, 256, 3))
+    draws = StepDraws(flip=torch.tensor([True, False, False, True]),
+                      perturb=dataclasses.replace(draws, style=True, freq=True))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for device in ("cpu", "cuda"):
+            model = build_model("UDEB4", cfg, dtype=torch.float32)
+            model.load_state_dict(weights, strict=True)
+            tx, _ = build_optimizer(UDEB4_CONFIG)
+            state = create_train_state(model, tx, device=device)
+            step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 2, 2,
+                                   preprocess=DevicePipeline(hflip_p=0.5))
+            _, metrics, _ = step(state, _train_batch(2, 2, 256, SEED + 8, device), None, draws)
+            runs[device] = ({k: float(v) for k, v in metrics.items()},
+                            {n: float(p.grad.norm()) for n, p in state.model.named_parameters()
+                             if p.grad is not None})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(lg[k] - v) / max(abs(v), 1e-12) for k, v in lc.items())
+    total = sum(v * v for v in gc.values()) ** 0.5
+    # a tensor whose gradient is rounding noise (a BatchNorm bias feeding a
+    # 1x1 conv and a train-mode BatchNorm, which cancels any shift) is
+    # judged against the total norm, the rest against their own
+    grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
+    log(f"[train-parity] UDEB4 256^2 b2+2 fp32 two-pass step, cuda vs cpu: losses max rel err "
+        f"{loss_err:.3g} (tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
+        f"{grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
+    if not (loss_err <= 1e-3 and grad_err <= 1e-2):
+        raise AssertionError(f"train parity: losses {lc} vs {lg}; worst gradient {worst}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -351,12 +574,15 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(args.quick, card)
     k2 = phase_k2(args.quick, card)
+    k2_bwd = phase_k2_bwd(args.quick, card)
     if args.quick:
         log("[quick] kernels built and checked; no timing, serving or parity")
         return 0
     weights = seeded_weights(card)
-    k1_launches, k2_launches = phase_serve(card, weights)
+    phase_serve(card, weights)  # asserts its own K1 and K2 launch counts
     phase_parity(card, weights)
+    k1_launches, k2_launches, k2_bwd_launches = phase_train(card, weights)
+    phase_train_parity(card, weights)
 
     lines = [
         dict(name="K1 normalize_flip", route="cuda", source="unidefense_torch/csrc/normalize_flip.cu",
@@ -367,6 +593,11 @@ def main() -> int:
              replaces="unidefense_tpu/ops/sfconv_pallas.py:169", launches=k2_launches,
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by="operations", library_ms=None),
+        dict(name="K2-bwd sfconv_freq_bwd", route="cuda",
+             source="unidefense_torch/csrc/sfconv_freq_bwd.cu",
+             replaces="unidefense_tpu/ops/sfconv_pallas.py:257", launches=k2_bwd_launches,
+             max_abs_err=k2_bwd["max_abs_err"], ms=k2_bwd["ms"], plain_ms=k2_bwd["plain_ms"],
+             bound_ms=k2_bwd["bound_ms"], bound_by="operations", library_ms=None),
     ]
     log(card)
     log(json.dumps({"kernels": lines}))

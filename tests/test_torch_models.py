@@ -15,7 +15,7 @@ from flax import linen as fnn
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from unidefense_torch.data.transforms import DevicePipeline as TorchDevicePipeline
-from unidefense_torch.inference import Predictor
+from unidefense_torch.inference import Predictor, resize_frames
 from unidefense_torch.models import efficientnet as teff
 from unidefense_torch.models import filters as tfilt
 from unidefense_torch.models import layers as tl
@@ -302,3 +302,16 @@ def test_predictor_matches_jax_eval_step_end_to_end():
     assert len(tl_["triplet"]) == len(jl_["triplet"]) == 3
     for t, j in zip(tl_["triplet"], jl_["triplet"]):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **tol)
+
+
+@pytest.mark.parametrize("src", [(300, 300), (720, 720), (200, 333)])
+def test_resize_frames_matches_cv2(src):
+    """predict_frames resizes other frame sizes with torch (bilinear,
+    half-pixel centres, rounded): within 1 intensity level of cv2.resize's
+    INTER_LINEAR, up and down. The card machine has no cv2."""
+    cv2 = pytest.importorskip("cv2")
+    frames = np.random.default_rng(src[1]).integers(0, 256, (2, *src, 3), dtype=np.uint8)
+    got = resize_frames(frames, 380)
+    ref = np.stack([cv2.resize(f, (380, 380)) for f in frames])
+    assert got.dtype == np.uint8 and got.shape == ref.shape == (2, 380, 380, 3)
+    assert int(np.abs(got.astype(np.int16) - ref).max()) <= 1

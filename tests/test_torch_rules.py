@@ -4,12 +4,14 @@ never fall back to the plain version for a tensor that is not on the CPU."""
 
 import ast
 import pathlib
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from unidefense_torch.inference import Predictor
+from unidefense_torch.models.registry import build_model
 from unidefense_torch.ops import _build
 from unidefense_torch.ops import preprocess, sfconv_cuda
 
@@ -52,18 +54,33 @@ def _u8():
     return torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 4, 4, 3), dtype=np.uint8))
 
 
+def _launches():
+    return (preprocess.normalize_flip.launches, sfconv_cuda.sfconv_freq.launches,
+            sfconv_cuda.sfconv_freq_bwd.launches)
+
+
+def _k2_backward():
+    """The autograd backward of K2, as autograd calls it after a kernel
+    forward: it launches K2 on the gradient, then K2-bwd."""
+    x, w = torch.randn(1, 4, 4, 8), torch.randn(16, 16)
+    ctx = types.SimpleNamespace(saved_tensors=(x, w))
+    return sfconv_cuda._SFConvFreq.backward(ctx, torch.randn(1, 4, 4, 8))
+
+
 @pytest.mark.parametrize("call", [
     lambda: preprocess.normalize_flip(_u8()),
     lambda: sfconv_cuda.sfconv_freq(torch.randn(1, 4, 4, 2), torch.randn(4, 4)),
-], ids=["K1", "K2"])
+    _k2_backward,
+], ids=["K1", "K2", "K2-bwd"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """With the device check stubbed to say "kernel", a wrapper on a machine
-    without a card or nvcc must raise, not return the plain result."""
+    without a card or nvcc must raise, not return the plain result, and
+    count no launch."""
     monkeypatch.setattr(_build, "uses_kernel", lambda t: True)
-    before = (preprocess.normalize_flip.launches, sfconv_cuda.sfconv_freq.launches)
+    before = _launches()
     with pytest.raises(RuntimeError):
         call()
-    assert (preprocess.normalize_flip.launches, sfconv_cuda.sfconv_freq.launches) == before
+    assert _launches() == before
 
 
 def test_k2_rejects_bf16_widths_off_the_tensor_core_tiles(monkeypatch):
@@ -76,12 +93,41 @@ def test_k2_rejects_bf16_widths_off_the_tensor_core_tiles(monkeypatch):
 
 
 def test_wrappers_do_not_count_plain_calls():
-    before = (preprocess.normalize_flip.launches, sfconv_cuda.sfconv_freq.launches)
+    before = _launches()
     preprocess.normalize_flip(_u8())
     sfconv_cuda.sfconv_freq(torch.randn(1, 4, 4, 2), torch.randn(4, 4))
-    assert (preprocess.normalize_flip.launches, sfconv_cuda.sfconv_freq.launches) == before
+    sfconv_cuda.sfconv_freq_bwd(torch.randn(1, 4, 4, 2), torch.randn(1, 4, 4, 2), torch.randn(4, 4))
+    assert _launches() == before
 
 
-def test_kernel_backward_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="K2-bwd"):
-        sfconv_cuda._SFConvFreq.backward(None, torch.zeros(1))
+def test_k2_bwd_rejects_what_it_cannot_take(monkeypatch):
+    """K2-bwd's entry refuses bf16 widths off the 16-byte loads and widths
+    past its shared-memory Hilbert matrix, before a build or a launch."""
+    monkeypatch.setattr(_build, "uses_kernel", lambda t: True)
+    x = torch.randn(1, 4, 4, 12).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 8"):
+        sfconv_cuda._launch_dw(x, x.clone())
+    x = torch.randn(1, 2, 130, 2)
+    with pytest.raises(ValueError, match="W <= 128"):
+        sfconv_cuda._launch_dw(x, x.clone())
+
+
+def test_train_forward_masks_repeat_with_the_generator_seed():
+    """A train-mode forward with every drop rate > 0 draws its masks from
+    the generator: the same seed gives the same output twice, another seed
+    another output."""
+    torch.manual_seed(0)
+    model = build_model("UDEB4", {"extractor": "efficientnet-b0",
+                                  "delimiter": [1, 3, 5, 8, 11, 15, 16], "drop_rate": 0.5,
+                                  "feat_drop_rate": 0.5, "drop_connect_rate": 0.5}).train()
+    x = torch.randn(4, 3, 32, 32).contiguous(memory_format=torch.channels_last)
+
+    def run(seed):
+        with torch.no_grad():
+            out = model(x, generator=torch.Generator().manual_seed(seed))
+        return torch.cat([out["cls_out"].flatten(), out["rec"].flatten(),
+                          out["loss_dict"]["factorization"].flatten()])
+
+    first, again, other = run(3), run(3), run(4)
+    assert torch.equal(first, again)
+    assert not torch.equal(first, other)

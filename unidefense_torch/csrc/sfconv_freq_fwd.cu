@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "hilbert_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -182,15 +184,6 @@ inline int rows_per_block(int H, int W) {
   return (H + groups - 1) / groups;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e == cudaSuccess) *configured = bytes;
-  return e;
-}
-
 int launch_fma(const void* x, const void* blocks, const void* hm, void* out, int N, int H,
                int W, int C, cudaStream_t s) {
   const int R = rows_per_block(H, W);
@@ -209,44 +202,16 @@ int launch_fma(const void* x, const void* blocks, const void* hm, void* out, int
 // ---------------------------------------------------------------------------
 // bf16 path on the tensor cores (mma.sync through WMMA), for C % 8 == 0.
 //
-// Pass 1 (hilbert_rows_kernel): hx[n,h] = bf16(hm @ x[n,h]) for every image
-// row, fp32 accumulation, written to a scratch tensor. hm@x_m is then simply
-// hx at the mirror row, so each Hilbert product is formed once, not once per
-// output-channel tile.
+// Pass 1 (hilbert_rows_kernel, hilbert_rows.cuh): hx[n,h] = bf16(hm @ x[n,h])
+// for every image row, fp32 accumulation, written to a scratch tensor. hm@x_m
+// is then simply hx at the mirror row, so each Hilbert product is formed
+// once, not once per output-channel tile.
 // Pass 2 (sfconv_mix_wmma_kernel): per block of R image rows and 64 output
 // channels, the two products
 //   core = [x_h | hx_h] @ [A1; -A2]      mir = [x_m | hx_m] @ [B1; B2]
 // with K = 2C streamed in chunks of 2 x 32 through shared memory, 16x16x16
 // bf16 WMMA fragments and fp32 accumulators; the epilogue rounds mir to bf16,
 // applies Pw and adds core.
-
-constexpr int kHC = 64;  // channels per chunk in the Hilbert pass
-
-__global__ void __launch_bounds__(kThreads)
-hilbert_rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ hm,
-                    __nv_bfloat16* __restrict__ hx, int W, int C) {
-  extern __shared__ float hsmem[];
-  float* hm_s = hsmem;        // W * W
-  float* xs = hm_s + W * W;   // W * kHC
-  const long long row = (long long)blockIdx.x * W * C;  // image row n*H + h
-  for (int i = threadIdx.x; i < W * W; i += kThreads) hm_s[i] = __bfloat162float(hm[i]);
-  const int c = threadIdx.x % kHC;
-  for (int c0 = 0; c0 < C; c0 += kHC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < W * kHC; i += kThreads) {
-      const int v = i / kHC, k = i % kHC;
-      xs[i] = c0 + k < C ? __bfloat162float(x[row + (long long)v * C + c0 + k]) : 0.f;
-    }
-    __syncthreads();
-    if (c0 + c >= C) continue;
-    for (int w = threadIdx.x / kHC; w < W; w += kThreads / kHC) {
-      const float* hrow = hm_s + w * W;
-      float acc = 0.f;
-      for (int v = 0; v < W; ++v) acc = fmaf(hrow[v], xs[v * kHC + c], acc);
-      hx[row + (long long)w * C + c0 + c] = __float2bfloat16(acc);
-    }
-  }
-}
 
 using namespace nvcuda;
 
@@ -371,13 +336,9 @@ sfconv_mix_wmma_kernel(const __nv_bfloat16* __restrict__ x,
 int launch_wmma(const void* x, const void* blocks, const void* hm, void* out, void* hx,
                 int N, int H, int W, int C, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  static size_t hilbert_configured = 0, mix_configured = 0;
-  const size_t hsmem = sizeof(float) * ((size_t)W * W + (size_t)W * kHC);
-  cudaError_t e = allow_smem(hilbert_rows_kernel, hsmem, &hilbert_configured);
-  if (e != cudaSuccess) return (int)e;
-  hilbert_rows_kernel<<<N * H, kThreads, hsmem, s>>>(
-      static_cast<const bf*>(x), static_cast<const bf*>(hm), static_cast<bf*>(hx), W, C);
-  e = cudaGetLastError();
+  static size_t mix_configured = 0;
+  cudaError_t e = launch_hilbert_rows(static_cast<const bf*>(x), static_cast<const bf*>(hm),
+                                      static_cast<bf*>(hx), N * H, W, C, s);
   if (e != cudaSuccess) return (int)e;
 
   const int R = rows_per_block(H, W);

@@ -13,12 +13,22 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unidefense_torch.data.transforms import DevicePipeline
 from unidefense_torch.device import DeviceLike, resolve_device
 from unidefense_torch.models.convert import state_dict_from_jax
 from unidefense_torch.models.registry import build_model
 from unidefense_torch.train.step import make_eval_step
+
+
+def resize_frames(frames_u8: np.ndarray, size: int) -> np.ndarray:
+    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8: bilinear with
+    half-pixel centres (align_corners=False), rounded and clamped. Within
+    one intensity level of ``cv2.resize``'s INTER_LINEAR, with no cv2."""
+    x = torch.from_numpy(np.ascontiguousarray(frames_u8)).permute(0, 3, 1, 2).float()
+    y = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
+    return y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
 
 
 class Predictor:
@@ -55,10 +65,7 @@ class Predictor:
         last one padded by repeating its last frame)."""
         n = frames_u8.shape[0]
         if frames_u8.shape[1:3] != (self.input_size, self.input_size):
-            import cv2  # only for frames that need resizing
-
-            frames_u8 = np.stack(
-                [cv2.resize(f, (self.input_size, self.input_size)) for f in frames_u8])
+            frames_u8 = resize_frames(frames_u8, self.input_size)
         bs = self.batch_size
         probs = []
         for start in range(0, n, bs):

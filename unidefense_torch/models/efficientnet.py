@@ -1,10 +1,10 @@
 """EfficientNet (b0-b8) with SFConv depthwise substitution
-(unidefense_tpu/models/efficientnet.py:33-124,136-269).
+(unidefense_tpu/models/efficientnet.py:33-133,136-269).
 
-Compound scaling, TF-SAME padding, SE, BN eps 1e-3, and
-SFConv in every block group except the first two and the last. Module names
-are the lukemelas torch keys (``_conv_stem``, ``_blocks.N._expand_conv``, …)
-so reference state dicts load as they are.
+Compound scaling, TF-SAME padding, SE, BN eps 1e-3 and momentum 0.01,
+drop-connect in training, and SFConv in every block group except the first
+two and the last. Module names are the lukemelas torch keys (``_conv_stem``,
+``_blocks.N._expand_conv``, …) so reference state dicts load as they are.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unidefense_torch.models.layers import BatchNorm, Conv, SFConv
+from unidefense_torch.models.layers import BatchNorm, Conv, SFConv, uniform
 
 # width, depth, resolution, dropout
 PARAMS = {
@@ -45,6 +45,7 @@ B0_BLOCKS = [
 ]
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01  # torch convention: 1 - 0.99
 
 
 def round_filters(filters: int, width_coefficient: float, divisor: int = 8) -> int:
@@ -95,11 +96,20 @@ def build_block_specs(model_name: str, freq_norm: Optional[str]) -> list[BlockSp
 
 
 def _bn(features: int, dtype) -> BatchNorm:
-    return BatchNorm(features, eps=BN_EPS, dtype=dtype)
+    return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM, dtype=dtype)
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: keep each sample's residual branch with probability
+    1 - rate, scaled by 1/(1 - rate); one mask value per sample."""
+    keep_prob = 1.0 - rate
+    mask = torch.floor(keep_prob + uniform((x.shape[0], 1, 1, 1), generator, x.device))
+    return x / keep_prob * mask.to(x.dtype)
 
 
 class MBConvBlock(nn.Module):
-    """Mobile inverted residual bottleneck with SE (eval forward)."""
+    """Mobile inverted residual bottleneck with SE."""
 
     def __init__(self, spec: BlockSpec, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -124,7 +134,8 @@ class MBConvBlock(nn.Module):
         self._project_conv = Conv(oup, spec.output_filters, 1, 1, "SAME", bias=False, dtype=dtype)
         self._bn2 = _bn(spec.output_filters, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_connect_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         spec = self.spec
         inputs = x
         if spec.expand_ratio != 1:
@@ -136,14 +147,15 @@ class MBConvBlock(nn.Module):
             x = torch.sigmoid(sq) * x
         x = self._bn2(self._project_conv(x))
         if spec.id_skip and spec.stride == 1 and spec.input_filters == spec.output_filters:
+            if self.training and drop_connect_rate:
+                x = drop_connect(x, drop_connect_rate, generator)
             x = x + inputs
         return x
 
 
 class EfficientNet(nn.Module):
     """Backbone without the top, with per-block access so wrappers can run
-    delimiter-bounded block ranges. Eval forward only: drop-connect is a
-    training feature and arrives with the training slice."""
+    delimiter-bounded block ranges."""
 
     def __init__(self, model_name: str = "efficientnet-b4", freq_norm: Optional[str] = "ortho",
                  drop_connect_rate: float = 0.2, dtype: Optional[torch.dtype] = None):
@@ -163,9 +175,13 @@ class EfficientNet(nn.Module):
     def stem_forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self._bn0(self._conv_stem(x)))
 
-    def block_range_forward(self, x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    def block_range_forward(self, x: torch.Tensor, start: int, end: int,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Blocks [start, end); in training block idx drops its residual
+        branch at drop_connect_rate * idx / len(blocks)."""
         for idx in range(start, end):
-            x = self._blocks[idx](x)
+            rate = self.drop_connect_rate * float(idx) / len(self._blocks)
+            x = self._blocks[idx](x, rate, generator)
         return x
 
     def head_forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Dynamic filters and the dual-space attention fusion
-(unidefense_tpu/models/filters.py:23-126).
+(unidefense_tpu/models/filters.py:23-126). In training the filters'
+``proj_norm`` BatchNorm uses batch statistics and the embedding added to
+the fused output passes through dropout.
 
 Module names follow the reference (``layer1.0`` conv, ``layer1.1`` norm,
 ``layer2.0`` mask conv; ``freq_filter``, ``spat_filter`` and ``fuse_coef``
@@ -16,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidefense_torch.device import nchw, nhwc, optional_dtype
-from unidefense_torch.models.layers import BatchNorm, Conv
+from unidefense_torch.models.layers import BatchNorm, Conv, dropout
 from unidefense_torch.ops.fft import irfft2_packed, spectrum_channels
 from unidefense_torch.ops.resize import bilinear_resize
 
@@ -50,10 +52,13 @@ class DynamicFilter(nn.Module):
 def dual_space_attention(freq_filter: DynamicFilter, spat_filter: DynamicFilter,
                          fuse_coef: torch.Tensor, pred: torch.Tensor, x: torch.Tensor,
                          embedding: torch.Tensor, freq_norm: str = "ortho",
-                         dtype: Optional[torch.dtype] = None) -> dict:
+                         dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0,
+                         training: bool = False,
+                         generator: Optional[torch.Generator] = None) -> dict:
     """Re-weight ``embedding`` (N, C, H, W) by frequency- and spatial-domain
-    masks conditioned on the reconstruction error (eval forward: the
-    embedding dropout is the identity). ``pred`` and ``x`` are NCHW images."""
+    masks conditioned on the reconstruction error; in training the embedding
+    added to the result passes through dropout at ``drop_rate``. ``pred``
+    and ``x`` are NCHW images."""
     eh, ew = embedding.shape[2], embedding.shape[3]
     pred = bilinear_resize(nhwc(pred), eh, ew)
     x = bilinear_resize(nhwc(x), eh, ew)
@@ -66,7 +71,8 @@ def dual_space_attention(freq_filter: DynamicFilter, spat_filter: DynamicFilter,
 
     spat_mask, spat_filtered = spat_filter(embedding, nchw((pred - x).abs()))
     coef = torch.sigmoid(fuse_coef).to(embedding.dtype)
-    out = (1.0 - coef) * spat_filtered + coef * nchw(freq_filtered) + embedding
+    out = (1.0 - coef) * spat_filtered + coef * nchw(freq_filtered)
+    out = out + dropout(embedding, drop_rate, training, generator)
     return {"out": out, "freq_mask": freq_mask, "spat_mask": spat_mask}
 
 
@@ -75,14 +81,17 @@ class DualSpaceAttention(nn.Module):
     parameters directly, as the reference does)."""
 
     def __init__(self, channels: int, activation: Callable = F.relu, bias: bool = False,
-                 freq_norm: str = "ortho", dtype: Optional[torch.dtype] = None):
+                 drop_rate: float = 0.2, freq_norm: str = "ortho",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.drop_rate = drop_rate
         self.freq_norm = freq_norm
         self.compute_dtype = dtype
         self.freq_filter = DynamicFilter(2 * channels, 6, 1, activation, bias, dtype)
         self.spat_filter = DynamicFilter(channels, 3, 3, activation, bias, dtype)
         self.fuse_coef = nn.Parameter(torch.tensor(0.0))
 
-    def forward(self, pred, x, embedding) -> dict:
+    def forward(self, pred, x, embedding, generator: Optional[torch.Generator] = None) -> dict:
         return dual_space_attention(self.freq_filter, self.spat_filter, self.fuse_coef,
-                                    pred, x, embedding, self.freq_norm, self.compute_dtype)
+                                    pred, x, embedding, self.freq_norm, self.compute_dtype,
+                                    self.drop_rate, self.training, generator)

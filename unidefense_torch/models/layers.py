@@ -56,15 +56,21 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with running stats, computed in fp32 and cast to
-    ``dtype`` (layers.py:78-137). Works on (N, C) and (N, C, H, W).
-    ``frozen_bias`` keeps a zero bias that is not trained, as the reference's
-    bottleneck does."""
+    """BatchNorm with torch semantics, computed in fp32 and cast to ``dtype``
+    (layers.py:78-137). Works on (N, C) and (N, C, H, W).
 
-    def __init__(self, features: int, eps: float = 1e-5, frozen_bias: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+    Training normalises with the biased batch variance and moves the running
+    statistics by ``momentum`` (torch convention: new = (1-m)*old + m*batch),
+    the running variance with the unbiased estimate. ``frozen_bias`` keeps a
+    zero bias that is not trained, as the reference's bottleneck does. The
+    batch statistics are this process's own: SyncBatchNorm comes with data
+    parallelism."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 frozen_bias: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features), requires_grad=not frozen_bias)
@@ -73,12 +79,42 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("train-mode BatchNorm arrives with the training slice")
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        scale = (self.weight * torch.rsqrt(self.running_var + self.eps)).view(shape)
-        y = (x.float() - self.running_mean.view(shape)) * scale + self.bias.view(shape)
+        xf = x.float()
+        if self.training:
+            dims = (0,) + tuple(range(2, x.dim()))
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            with torch.no_grad():
+                n = xf.numel() // xf.shape[1]
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * n / max(n - 1, 1) * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = (self.weight * torch.rsqrt(var + self.eps)).view(shape)
+        y = (xf - mean.view(shape)) * scale + self.bias.view(shape)
         return y.to(self.compute_dtype or x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1/(1 - rate). The mask is drawn from ``generator`` (on its
+    device; F.dropout cannot take one), or from the global generator of x's
+    device when it is None."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = uniform(x.shape, generator, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def uniform(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
+    """U[0, 1) of ``shape`` on ``device``, drawn on the generator's device."""
+    if generator is None:
+        return torch.rand(shape, device=device)
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
 
 
 class InstanceNorm(nn.Module):

@@ -1,4 +1,4 @@
-"""UniDefense with EfficientNet (UDEB4), eval forward
+"""UniDefense with EfficientNet (UDEB4)
 (unidefense_tpu/models/unidefense.py:51-208).
 
 Encoder backbone -> spatial decoder reconstructing the input -> dual-space
@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from unidefense_torch.device import nchw, nhwc
 from unidefense_torch.models.efficientnet import EfficientNet
 from unidefense_torch.models.filters import DynamicFilter, dual_space_attention
-from unidefense_torch.models.layers import BatchNorm, Classifier, Conv, ConvTranspose, InstanceNorm
+from unidefense_torch.models.layers import (
+    BatchNorm, Classifier, Conv, ConvTranspose, InstanceNorm, dropout)
 from unidefense_torch.ops.fft import spectrum_channels
 from unidefense_torch.ops.resize import bilinear_resize
 
@@ -71,10 +72,16 @@ def _recon_losses(rec: torch.Tensor, x: torch.Tensor, freq_norm: str):
 
 
 class UniDefenseModelEb4(nn.Module):
-    """UniDefense with an EfficientNet backbone. ``forward(x, noise_x=None)``
-    returns {'cls_out', 'rec', 'loss_dict'} with loss_dict = {factorization,
-    triplet (list of 3), freq_mask, spat_mask, spatial, freq}. Eval only:
-    the dropouts and drop-connect are training features."""
+    """UniDefense with an EfficientNet backbone.
+    ``forward(x, noise_x=None, generator=None)`` returns {'cls_out', 'rec',
+    'loss_dict'} with loss_dict = {factorization, triplet (list of 3),
+    freq_mask, spat_mask, spatial, freq}. ``noise_x`` (the perturbed input
+    of training pass 2) feeds the backbone; the reconstruction and the
+    attention compare against the clean ``x``. In training, drop-connect,
+    the decoder-input dropout (``feat_drop_rate``), the attention's
+    embedding dropout and the dropout after the bottleneck (``drop_rate``)
+    draw their masks from ``generator``; with all rates 0 the forward is
+    deterministic."""
 
     def __init__(self, extractor: str = "efficientnet-b4", num_classes: int = 2,
                  drop_rate: float = 0.2, drop_connect_rate: float = 0.2,
@@ -102,36 +109,40 @@ class UniDefenseModelEb4(nn.Module):
         self.bottleneck = BatchNorm(self.backbone.head_filters, frozen_bias=True, dtype=dtype)
         self.classifier = Classifier(self.backbone.head_filters, num_classes, dtype)
 
-    def _block(self, x: torch.Tensor, block_id: int) -> torch.Tensor:
+    def _block(self, x: torch.Tensor, block_id: int,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
         start = self.delimiter[block_id - 1] if block_id > 0 else 0
-        return self.backbone.block_range_forward(x, start, self.delimiter[block_id])
+        return self.backbone.block_range_forward(x, start, self.delimiter[block_id], generator)
 
-    def forward(self, x: torch.Tensor, noise_x: Optional[torch.Tensor] = None) -> dict:
-        if self.training:
-            raise NotImplementedError("the training forward arrives with the training slice")
+    def forward(self, x: torch.Tensor, noise_x: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
         if noise_x is None:
             noise_x = x
+        g = generator
         h = self.backbone.stem_forward(noise_x)
-        x_b0 = self._block(h, 0)
-        x_b1 = self._block(x_b0, 1)
-        x_b2 = self._block(x_b1, 2)
-        x_b3 = self._block(x_b2, 3)
-        x_b4 = self._block(x_b3, 4)
+        x_b0 = self._block(h, 0, g)
+        x_b1 = self._block(x_b0, 1, g)
+        x_b2 = self._block(x_b1, 2, g)
+        x_b3 = self._block(x_b2, 3, g)
+        x_b4 = self._block(x_b3, 4, g)
 
-        dec_out1 = self.dec_block1(x_b4)
+        dec_in = dropout(x_b4, self.feat_drop_rate, self.training, g)
+        dec_out1 = self.dec_block1(dec_in)
         dec_out2 = self.dec_block2(dec_out1)
         dec_out3 = self.dec_block3(dec_out2)
 
-        x_b5 = self._block(x_b4, 5)
+        x_b5 = self._block(x_b4, 5, g)
         att = dual_space_attention(self.freq_filter, self.spat_filter, self.fuse_coef,
                                    dec_out3.detach(), x, x_b5, self.freq_norm,
-                                   self.compute_dtype)
-        x_out = self._block(att["out"], 6)
+                                   self.compute_dtype, self.drop_rate, self.training, g)
+        x_out = self._block(att["out"], 6, g)
         x_out = self.backbone.head_forward(x_out)
         x_out = self.bottleneck(x_out.mean(dim=(2, 3)))
+        factorization = x_out
+        x_out = dropout(x_out, self.drop_rate, self.training, g)
 
         loss_dict = {
-            "factorization": x_out,
+            "factorization": factorization,
             "triplet": [x_b4.mean(dim=(2, 3)), dec_out1.mean(dim=(2, 3)),
                         dec_out2.mean(dim=(2, 3))],
             "freq_mask": att["freq_mask"],

@@ -46,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # every shared header is hashed with each source: a header edit rebuilds all
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{h}.so"
 
 

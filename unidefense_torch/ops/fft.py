@@ -28,3 +28,14 @@ def irfft2_packed(r: torch.Tensor, s: tuple[int, int], norm: str = "ortho") -> t
     r = r.float()
     z = torch.complex(r[..., :c], r[..., c:])
     return torch.fft.irfft2(z, s=tuple(s), dim=_SPATIAL, norm=norm)
+
+
+def abs_angle_packed(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(amplitude, unit_re, unit_im) of a packed spectrum: real arithmetic
+    for torch.abs/torch.angle + exp(1j*angle), the amplitude floored at
+    1e-20 in the division."""
+    c = r.shape[-1] // 2
+    re, im = r[..., :c], r[..., c:]
+    amp = (re * re + im * im).sqrt()
+    safe = amp.clamp(min=1e-20)
+    return amp, re / safe, im / safe

@@ -1,4 +1,4 @@
-"""Resize / pooling on NHWC tensors (unidefense_tpu/ops/resize.py:67-85).
+"""Resize / pooling on NHWC tensors (unidefense_tpu/ops/resize.py:67-98).
 
 torch's own operators carry the reference semantics directly
 (``F.interpolate(bilinear, align_corners=True)``, ``F.adaptive_avg_pool2d``),
@@ -7,6 +7,7 @@ so the JAX package's separable interpolation matrices are not needed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,3 +32,15 @@ def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NHWC -> NC spatial mean."""
     return x.mean(dim=(1, 2))
+
+
+def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """NHWC nearest resize, source index floor(dst * in/out) as
+    ``F.interpolate(mode='nearest')`` picks it, from explicit index tables."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == (out_h, out_w):
+        return x
+    rows = np.floor(np.arange(out_h) * (h / out_h)).astype(np.int64)
+    cols = np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64)
+    x = x.index_select(1, torch.from_numpy(rows).to(x.device))
+    return x.index_select(2, torch.from_numpy(cols).to(x.device))

@@ -51,16 +51,23 @@ def double_reversal(x: torch.Tensor) -> torch.Tensor:
     return torch.roll(x.flip(1, 2), shifts=(1, 1), dims=(1, 2))
 
 
+def sfconv_freq_blocks(x: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor, b1: torch.Tensor,
+                       b2: torch.Tensor) -> torch.Tensor:
+    """x@A1 − H(x)@A2 + x̃@B1 − H(x̃)@B2 for four given (C, C) blocks, in x's
+    dtype. With the transposed blocks (A1ᵀ, −A2ᵀ, B1ᵀ, B2ᵀ) it is the
+    branch's input gradient (Hᵀ = −H, x̃ is its own transpose, H∘R = −R∘H)."""
+    dt = x.dtype
+    a1, a2, b1, b2 = (m.to(dt) for m in (a1, a2, b1, b2))
+    hm = hilbert_row_matrix(x.shape[2]).to(device=x.device, dtype=dt)
+    x_rev = double_reversal(x)
+    hx = torch.einsum("dv,nhvc->nhdc", hm, x)
+    hx_rev = torch.einsum("dv,nhvc->nhdc", hm, x_rev)
+    return x @ a1 - hx @ a2 + x_rev @ b1 - hx_rev @ b2
+
+
 def sfconv_freq_spatial(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     """SFConv frequency branch in the "pair" form, computed in x's dtype.
 
     x: (N, H, W, C); w_packed: (2C, 2C), rows = packed input channels.
     Returns (N, H, W, C) == irfft2_packed(spectrum_channels(x) @ w_packed)."""
-    n, h, w, c = x.shape
-    dt = x.dtype
-    a1, a2, b1, b2 = (m.to(dt) for m in split_blocks(w_packed, c))
-    hm = hilbert_row_matrix(w).to(device=x.device, dtype=dt)
-    x_rev = double_reversal(x)
-    hx = torch.einsum("dv,nhvc->nhdc", hm, x)
-    hx_rev = torch.einsum("dv,nhvc->nhdc", hm, x_rev)
-    return x @ a1 - hx @ a2 + x_rev @ b1 - hx_rev @ b2
+    return sfconv_freq_blocks(x, *split_blocks(w_packed, x.shape[-1]))

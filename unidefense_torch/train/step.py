@@ -1,13 +1,226 @@
-"""Step builders (unidefense_tpu/train/step.py). Only the eval step is
-ported; the two-pass train step arrives with the training slice."""
+"""Step builders (unidefense_tpu/train/step.py:53-358): the UniDefense
+two-pass train step, the single-pass step and the eval step.
+
+The two-pass step (``make_train_step``):
+
+  pass 1 (clean):     forward, CE + mask sparsity + AW-triplet + real-only
+                      pixel/rFFT reconstruction losses, backward, update 1.
+                      The pass-1 masks and bottleneck embedding are kept,
+                      detached, as targets for pass 2.
+  pass 2 (perturbed): forward on the updated params (and the BatchNorm
+                      statistics pass 1 left) with a perturbed backbone
+                      input; after 10% of ``num_steps`` the mask losses are
+                      KL consistency against the pass-1 masks; the
+                      factorization loss is taken against the pass-1
+                      embedding; backward, update 2 in the same step.
+
+With ``faithful_grad_accumulation`` (the reference zeroes gradients once per
+step) update 2 applies the SUM of the pass-1 and pass-2 gradients: the
+step simply does not clear ``.grad`` between the passes.
+
+The model, its optimizer state, the step count and the plateau factor live
+in :class:`TrainState`; the step updates them in place. Randomness comes
+from one explicit ``torch.Generator``; the tests pass the flip mask and the
+perturbation draws in instead (:class:`StepDraws`).
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.nn as nn
 
-from unidefense_torch.device import nchw
+from unidefense_torch.device import DeviceLike, nchw, resolve_device
+from unidefense_torch.losses import (
+    asymmetric_weighted_triplet, binary_cross_entropy_with_logits, cross_entropy, factorization,
+    kl_div_log_target)
+from unidefense_torch.train.optim import Adam, OptState
+from unidefense_torch.train.perturb import PerturbDraws, perturb_input
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    opt_state: OptState
+    step: int = 0  # completed train steps
+    # metric-fed LR multiplier (ReduceLROnPlateau); None means 1.0
+    lr_scale: Optional[float] = None
+
+
+@dataclass
+class StepDraws:
+    """Random choices of one train step, passed in instead of drawn."""
+
+    flip: Optional[torch.Tensor] = None  # (N,) bool, for the preprocessing
+    perturb: Optional[PerturbDraws] = None
+
+
+def create_train_state(model: nn.Module, tx: Adam, device: DeviceLike = None) -> TrainState:
+    """Move ``model`` to the device (``cuda`` unless told otherwise, in
+    channels_last) and start its optimizer state."""
+    model = model.to(resolve_device(device), memory_format=torch.channels_last)
+    return TrainState(model=model, opt_state=tx.init(model))
+
+
+def _classification_loss(cls_out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    if cls_out.shape[-1] == 1:
+        return binary_cross_entropy_with_logits(cls_out[:, 0], labels.to(cls_out.dtype))
+    return cross_entropy(cls_out, labels)
+
+
+def _shared_losses(out: dict, labels: torch.Tensor, sum_real: int, sum_fake: int) -> dict:
+    """Losses computed alike in both passes; the batch is real first."""
+    ld = out["loss_dict"]
+    spatial, freq = ld["spatial"], ld["freq"]
+    fake = slice(sum_real, sum_real + sum_fake)
+    return {
+        "cls_loss": _classification_loss(out["cls_out"].float(), labels),
+        "triplet_loss": sum(asymmetric_weighted_triplet(f.float(), labels, sum_real)
+                            for f in ld["triplet"]),
+        "real_rec_loss": spatial[:sum_real].mean(),
+        "fake_rec_loss": spatial[fake].mean(),
+        "real_freq_loss": freq[:sum_real].mean(),
+        "fake_freq_loss": freq[fake].mean(),
+    }
+
+
+def _flat_log_softmax(m: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(m.reshape(m.shape[0], -1).float(), dim=-1)
+
+
+def _clear_grads(model: nn.Module) -> None:
+    for p in model.parameters():
+        p.grad = None
+
+
+def _lambdas(config_cfg: dict, *names: str) -> list[float]:
+    # the reference's .get(key, 1.) for every loss weight
+    return [float(config_cfg.get(f"lambda_{n}", 1.0)) for n in names]
+
+
+def _prepare(state: TrainState, batch: dict, generator, draws, preprocess):
+    if generator is None and draws is None:
+        raise ValueError("a train step draws its flips, perturbation and dropout masks from "
+                         "`generator`: pass one, or pass `draws`")
+    dev = next(state.model.parameters()).device
+    x, labels = batch["image"].to(dev), batch["label"].to(dev)
+    if preprocess is not None:
+        x = preprocess(x, generator, None if draws is None else draws.flip)
+    return x.contiguous(), labels
+
+
+def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, sum_fake: int,
+                    faithful_grad_accumulation: bool = True, preserve_color: bool = True,
+                    freq_norm: str = "ortho", preprocess: Optional[Callable] = None) -> Callable:
+    """The two-pass step ``train_step(state, batch, generator, draws=None)
+    -> (state, metrics, cls_out)``. ``batch`` = {'image': NHWC (uint8 when
+    ``preprocess`` is set, e.g. ``DevicePipeline(hflip_p=0.5)``), 'label':
+    (N,)}. ``config_cfg`` supplies the loss weights (lambda_*). The metrics
+    are 0-d tensors: pass 1's losses and total, pass 2's mask and
+    factorization losses; ``cls_out`` is pass 1's."""
+    lam_mask, lam_triplet, lam_recons, lam_freq, lam_fac = _lambdas(
+        config_cfg, "mask", "triplet", "recons", "freq", "fac")
+    kl_switch_step = num_steps * 0.1
+
+    def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
+                   draws: Optional[StepDraws] = None):
+        model = state.model
+        model.train()
+        x, labels = _prepare(state, batch, generator, draws, preprocess)
+        cur_step = state.step + 1  # 1-indexed like the reference loop
+
+        # ---- pass 1 (clean) ----
+        _clear_grads(model)
+        out = model(nchw(x), generator=generator)
+        ld = out["loss_dict"]
+        aux1 = _shared_losses(out, labels, sum_real, sum_fake)
+        total1 = (aux1["cls_loss"]
+                  + lam_mask * ld["freq_mask"].float().mean()
+                  + lam_mask * ld["spat_mask"].float().mean()
+                  + lam_triplet * aux1["triplet_loss"]
+                  + lam_recons * aux1["real_rec_loss"]
+                  + lam_freq * aux1["real_freq_loss"])
+        aux1["total_loss"] = total1
+        gts = {"freq_mask": ld["freq_mask"].detach(), "spat_mask": ld["spat_mask"].detach(),
+               "factorization": ld["factorization"].detach().float()}
+        cls_out = out["cls_out"].detach()
+        total1.backward()
+        del out, ld
+        tx.update(model, state.opt_state, state.lr_scale)
+
+        # ---- pass 2 (perturbed) ----
+        noise_x = perturb_input(x, sum_real, sum_fake, generator,
+                                None if draws is None else draws.perturb,
+                                preserve_color=preserve_color, freq_norm=freq_norm)
+        if not faithful_grad_accumulation:
+            _clear_grads(model)
+        out = model(nchw(x), noise_x=nchw(noise_x.contiguous()), generator=generator)
+        ld = out["loss_dict"]
+        losses = _shared_losses(out, labels, sum_real, sum_fake)
+        if cur_step > kl_switch_step:  # mask consistency after 10% of the steps
+            freq_mask_loss = kl_div_log_target(_flat_log_softmax(ld["freq_mask"]),
+                                               _flat_log_softmax(gts["freq_mask"]))
+            spat_mask_loss = kl_div_log_target(_flat_log_softmax(ld["spat_mask"]),
+                                               _flat_log_softmax(gts["spat_mask"]))
+        else:  # sparsity before
+            freq_mask_loss = ld["freq_mask"].float().mean()
+            spat_mask_loss = ld["spat_mask"].float().mean()
+        fac_loss = factorization(ld["factorization"].float(), gts["factorization"])
+        total2 = (0.1 * losses["cls_loss"]
+                  + lam_mask * freq_mask_loss
+                  + lam_mask * spat_mask_loss
+                  + lam_triplet * losses["triplet_loss"]
+                  + lam_recons * 0.1 * losses["real_rec_loss"]
+                  + lam_freq * 0.1 * losses["real_freq_loss"]
+                  + lam_fac * fac_loss)
+        total2.backward()
+        del out, ld
+        tx.update(model, state.opt_state, state.lr_scale)
+
+        state.step = cur_step
+        aux2 = {"freq_mask_loss": freq_mask_loss, "spat_mask_loss": spat_mask_loss,
+                "fac_loss": fac_loss}
+        metrics = {k: v.detach() for k, v in {**aux1, **aux2}.items()}
+        return state, metrics, cls_out
+
+    return train_step
+
+
+def make_normal_train_step(tx: Adam, config_cfg: dict, sum_real: int, sum_fake: int,
+                           preprocess: Optional[Callable] = None) -> Callable:
+    """Single-pass step (the reference's train_normal_model): one
+    forward/backward/update with CE + triplet + real-only reconstruction
+    losses, plus the aux_cls_loss / aux_spatial / aux_freq terms of models
+    that emit them. Same call as :func:`make_train_step`'s step."""
+    lam_triplet, lam_recons, lam_freq, lam_aux_cls = _lambdas(
+        config_cfg, "triplet", "recons", "freq", "aux_cls")
+
+    def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
+                   draws: Optional[StepDraws] = None):
+        model = state.model
+        model.train()
+        x, labels = _prepare(state, batch, generator, draws, preprocess)
+        _clear_grads(model)
+        out = model(nchw(x), generator=generator)
+        ld = out.get("loss_dict", {})
+        aux = _shared_losses(out, labels, sum_real, sum_fake)
+        total = (aux["cls_loss"] + lam_triplet * aux["triplet_loss"]
+                 + lam_recons * aux["real_rec_loss"] + lam_freq * aux["real_freq_loss"])
+        if ld.get("aux_cls_loss") is not None:
+            total = total + lam_aux_cls * ld["aux_cls_loss"]
+        if ld.get("aux_spatial") is not None:  # real-only by contract, at 0.1x
+            total = total + 0.1 * lam_recons * ld["aux_spatial"].mean()
+        if ld.get("aux_freq") is not None:
+            total = total + 0.1 * lam_freq * ld["aux_freq"].mean()
+        aux["total_loss"] = total
+        total.backward()
+        tx.update(model, state.opt_state, state.lr_scale)
+        state.step += 1
+        return state, {k: v.detach() for k, v in aux.items()}, out["cls_out"].detach()
+
+    return train_step
 
 
 def make_eval_step(model: torch.nn.Module, preprocess: Optional[Callable] = None) -> Callable:
