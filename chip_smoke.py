@@ -5,18 +5,24 @@
     python3 chip_smoke.py --quick    # build, then run and check each kernel once
 
 Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
-(normalize_flip), K2 (sfconv_freq forward) and K2-bwd (its weight sums,
-with K2 on the gradient for x_bar) against their plain PyTorch versions on
-the card at the shapes the serving and training paths give them, timing
-each; serve UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with
-seeded random weights and check that every batch went through K1 and K2;
-compare the card's fp32 and bf16 Predictor with the CPU Predictor; train
-UDEB4 at 380x380, 10 real + 10 fake, bf16, with the two-pass step and the
-optimizer of config_template/forgery/model_udeb4.yml, checking every step's
-launches of K1, K2 and K2-bwd; compare one fp32 training step on the card
-with the same step on the CPU. Any failure raises, so the exit code is not
-0 and no result line is printed. The last line is the result object; the
-line before it the kernel table.
+(normalize_flip), K2 (sfconv_freq forward), K2-bwd (its weight sums, with
+K2 on the gradient for x_bar), K3 (sfconv_freq_v4, split output), K3-bwd,
+K4 (sfconv_freq_v3, over a materialised double reversal) and K4-bwd
+against their plain PyTorch versions on the card at the shapes the serving
+and training paths and the per-op A/B tool give them, timing each; serve
+UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with seeded random
+weights and check that
+every batch went through K1 and K2; compare the card's fp32 and bf16
+Predictor with the CPU Predictor; train UDEB4 at 380x380, 10 real + 10
+fake, bf16, with the two-pass step and the optimizer of
+config_template/forgery/model_udeb4.yml, checking every step's launches of
+K1, K2 and K2-bwd; compare one fp32 training step on the card with the same
+step on the CPU. Then the same three paths on the K3 route (``v4_widths``
+{48, 24} at 380^2, {32, 16} at 256^2), where K3 and K3-bwd take the SFConv
+widths listed; and the per-op A/B tool ``unidefense_torch.tools.bench_sfconv``,
+the path of K4 and K4-bwd. Any failure raises, so the exit code is not 0 and
+no result line is printed. The last line is the result object; the line
+before it the kernel table.
 """
 
 from __future__ import annotations
@@ -50,6 +56,17 @@ SFCONV_SHAPES = {
     380: [(95, 192, 1), (48, 336, 4), (24, 672, 6), (24, 960, 6), (12, 1632, 7)],
     256: [(64, 192, 1), (32, 336, 4), (16, 672, 6), (16, 960, 6), (8, 1632, 7)],
 }
+# the K3 route: SFConv widths given to K3 (sfconv_pallas.py:79's A/B setting
+# at 380^2, and the same blocks at 256^2)
+V4_WIDTHS = {380: frozenset({48, 24}), 256: frozenset({32, 16})}
+
+
+def per_forward_launches(res: int, v4_widths) -> tuple[int, int]:
+    """(K2, K3) launches of one UDEB4 forward at res^2 on a route."""
+    from unidefense_torch.ops.sfconv_rowtiled import uses_v4
+
+    k3 = sum(n for hw, c, n in SFCONV_SHAPES[res] if uses_v4((1, hw, hw, c), v4_widths))
+    return sum(n for _, _, n in SFCONV_SHAPES[res]) - k3, k3
 
 
 def log(msg: str) -> None:
@@ -122,129 +139,187 @@ def phase_k1(quick: bool, card: str) -> dict:
                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
                 f"(bytes {nbytes}), {card}")
             if size == 380 and dt == torch.float32:
-                main = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+                main = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes")
     return dict(max_abs_err=worst, **(main or {}))
 
 
-def _k2_bound_ms(n, h, w, c) -> tuple[float, str]:
-    # four C x C channel mixes per pixel, and one Hilbert product hm@x per
-    # image row: hm@x_m is that product at the mirror row m, not a second one
-    flops = n * h * (2 * w * w * c + 8 * w * c * c)
-    nbytes = 2 * n * h * w * c * 2 + 4 * c * c * 2
+def _sfconv_bound_ms(n, hw, c, hilberts, streams, out_bytes) -> tuple[float, str]:
+    # the four C x C channel mixes per pixel and `hilberts` Hilbert products
+    # hm@x per image row (K2's hm@x_m is the product at the mirror row m, not
+    # a second one); `streams` (N, H, W, C) bf16 tensors read or written
+    # once, and `out_bytes` of bf16 blocks read or fp32 sums written
+    flops = n * hw * (8 * hw * c * c + 2 * hilberts * hw * hw * c)
+    nbytes = streams * n * hw * hw * c * 2 + out_bytes
     t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_k2(quick: bool, card: str) -> dict:
+def sfconv_check_shapes() -> list[tuple[int, int, str]]:
+    """(H=W, C, origin) of every shape the SFConv frequency kernels are
+    checked at: UDEB4's at 380^2 and 256^2, then those of the per-op A/B
+    tool that UDEB4 lacks (80^2/C192 and 12^2/C960)."""
+    from unidefense_torch.tools.bench_sfconv import SHAPES_256, SHAPES_380
+
+    shapes = {(hw, c): f"{res}^2" for res, ss in SFCONV_SHAPES.items() for hw, c, _ in ss}
+    for _, w, c in SHAPES_256 + SHAPES_380:
+        shapes.setdefault((w, c), "A/B tool")
+    return [(hw, c, origin) for (hw, c), origin in shapes.items()]
+
+
+def sfconv_kernels() -> list[dict]:
+    """The SFConv frequency kernels K2 to K4-bwd: each with its wrapper and
+    plain version, its check batch and seed, the terms of its bound, and
+    the workload its times are summed over as {(H=W, C): launches}. That is
+    one UDEB4 forward or backward at 380^2 on the kernel's route (K2 and
+    K2-bwd on the default route, K3 and K3-bwd on V4_WIDTHS), or one pass of
+    the A/B tool over its shapes (K4 twice per shape, the forward and x_bar;
+    K4-bwd once). A backward also has its sums kernel alone and the plain
+    sums, as factories of (x, g) that return the call to time."""
+    from functools import partial
+
+    from unidefense_torch.ops import sfconv_cuda as k2
+    from unidefense_torch.ops import sfconv_rowtiled as rt
+    from unidefense_torch.ops.sfconv_spatial import double_reversal, sfconv_freq_spatial
+    from unidefense_torch.tools.bench_sfconv import SHAPES_256, SHAPES_380
+
+    fwd = {(hw, c): n for hw, c, n in SFCONV_SHAPES[380]}
+    v4 = {k: n for k, n in fwd.items() if rt.uses_v4((1, k[0], k[0], k[1]), V4_WIDTHS[380])}
+    ab = [(w, c) for _, w, c in SHAPES_256 + SHAPES_380]
+    route = f"on v4_widths {sorted(V4_WIDTHS[380])}"
+    ab_pass = f"per A/B tool pass (one fwd+bwd at each of its {len(ab)} shapes) b20"
+
+    def with_rx(f):
+        return lambda x, g: partial(f, x, double_reversal(x).contiguous(), g)
+
+    return [
+        dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
+             hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32"),
+        dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
+             seed=SEED + 4, hilberts=1, streams=2, counts=fwd,
+             sums=lambda x, g: partial(k2._launch_dw, x, g),
+             sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g),
+             workload="per UDEB4 backward at 380^2 b20"),
+        dict(name="K3", fn=rt.sfconv_freq_v4, plain=rt.sfconv_freq_v4_plain, batch=32,
+             seed=SEED + 10, hilberts=1, streams=3, counts=v4,
+             workload=f"per UDEB4 forward at 380^2 b32 {route}"),
+        dict(name="K3-bwd", fn=rt.sfconv_freq_v4_bwd, plain=rt.sfconv_freq_v4_bwd_plain,
+             batch=20, seed=SEED + 11, hilberts=1, streams=2, counts=v4,
+             sums=lambda x, g: partial(rt._launch_v4_dw, x, g),
+             sums_plain=lambda x, g: partial(rt.v4_weight_sums_plain, x, g),
+             workload=f"per UDEB4 backward at 380^2 b20 {route}"),
+        dict(name="K4", fn=rt.sfconv_freq_v3, plain=rt.sfconv_freq_v3_plain, batch=20,
+             seed=SEED + 12, hilberts=2, streams=3, counts={k: 2 for k in ab}, workload=ab_pass),
+        dict(name="K4-bwd", fn=rt.sfconv_freq_v3_bwd, plain=rt.sfconv_freq_v3_bwd_plain,
+             batch=20, seed=SEED + 13, hilberts=2, streams=3, counts={k: 1 for k in ab},
+             sums=with_rx(rt._launch_v3_dw), sums_plain=with_rx(rt.v3_weight_sums_plain),
+             workload=ab_pass),
+    ]
+
+
+def _summed(spec: dict, per_shape: dict, card: str) -> dict:
+    """The per-shape times of a kernel weighted by the launches of its
+    workload, logged; whole_ms (a backward's) is logged only. The sum is
+    bound by operations where the shapes bound by operations carry most of
+    its bound."""
+    counts = spec["counts"]
+    keys = [key for key in next(iter(per_shape.values())) if key != "by"]
+    total = {key: sum(n * per_shape[k][key] for k, n in counts.items()) for key in keys}
+    by_ops = sum(n * per_shape[k]["bound_ms"] for k, n in counts.items()
+                 if per_shape[k]["by"] == "operations")
+    total["bound_by"] = "operations" if 2 * by_ops >= total["bound_ms"] else "bytes"
+    whole = f"; whole backward {total.pop('whole_ms'):.3f} ms" if "whole_ms" in total else ""
+    log(f"[{spec['name']}] {spec['workload']} ({sum(counts.values())} launches): kernel "
+        f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms{whole}, {card}")
+    return total
+
+
+def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
+    """A forward kernel (K2, K3, K4) at every shape of sfconv_check_shapes(),
+    in bf16 and fp32 against the plain version in fp32 (within 2e-2 and 1e-4
+    of max |ref|), timed beside the plain version in bf16."""
     import torch
 
-    from unidefense_torch.ops.sfconv_cuda import sfconv_freq
-    from unidefense_torch.ops.sfconv_spatial import sfconv_freq_spatial
-
+    name, fn, plain, batch = spec["name"], spec["fn"], spec["plain"], spec["batch"]
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst_abs, per_forward = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for res, shapes in SFCONV_SHAPES.items():
-        for hw, c, per_fwd in shapes:
-            x = torch.randn(32, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
-            w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
-            got = sfconv_freq(x, w)
-            ref = sfconv_freq_spatial(x.float(), w)
-            got32 = sfconv_freq(x.float(), w)
-            torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    worst_abs, per_shape = 0.0, {}
+    for hw, c, origin in sfconv_check_shapes():
+        x = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
+        got = fn(x, w)
+        ref = plain(x.float(), w)
+        got32 = fn(x.float(), w)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (got.float() - ref).abs().max().item()
+        err32 = (got32 - ref).abs().max().item()
+        worst_abs = max(worst_abs, err)
+        if not (err <= 2e-2 * scale and err32 <= 1e-4 * scale):
+            raise AssertionError(f"{name} {hw}^2/C{c}: bf16 err {err}, fp32 err {err32}, "
+                                 f"max |ref| {scale}")
+        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): bf16 max |err| {err:.4g} = "
+                f"{err / scale:.3g} of max |ref| (tol 2e-2); fp32 {err32 / scale:.3g} (tol 1e-4)")
+        del got, ref, got32
+        if quick:
+            log(head + " ok")
+            continue
+        ms = time_ms(lambda: fn(x, w), warmup=2, iters=10)
+        plain_ms = time_ms(lambda: plain(x, w), warmup=2, iters=10)
+        bound, by = _sfconv_bound_ms(batch, hw, c, spec["hilberts"], spec["streams"],
+                                     4 * c * c * 2)
+        log(f"{head}; kernel {ms:.4f} ms, plain(bf16) {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), {card}")
+        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
+    return dict(max_abs_err=worst_abs, **({} if quick else _summed(spec, per_shape, card)))
+
+
+def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
+    """A backward (K2-bwd, K3-bwd, K4-bwd) at every shape of
+    sfconv_check_shapes(): x_bar (the forward kernel on the gradient) and
+    w_bar (the sums kernel and the repack) in bf16 and fp32 against the
+    plain version in fp32, each within 2e-2 and 1e-4 of its own max |ref|.
+    The sums kernel is timed alone, the whole backward beside it."""
+    import torch
+
+    name, bwd, bwd_plain, batch = spec["name"], spec["fn"], spec["plain"], spec["batch"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    worst, per_shape = 0.0, {}
+    for hw, c, origin in sfconv_check_shapes():
+        x = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
+        ref_x, ref_w = bwd_plain(x.float(), g.float(), w)
+        got_x, got_w = bwd(x, g, w)
+        got32_x, got32_w = bwd(x.float(), g.float(), w)
+        torch.cuda.synchronize()
+        errs = []
+        for part, ref, got, got32 in (("x_bar", ref_x, got_x, got32_x),
+                                      ("w_bar", ref_w, got_w, got32_w)):
             scale = ref.abs().max().item()
-            err = (got.float() - ref).abs().max().item()
-            err32 = (got32 - ref).abs().max().item()
-            worst_abs = max(worst_abs, err)
-            if not (err <= 2e-2 * scale and err32 <= 1e-4 * scale):
-                raise AssertionError(f"K2 {hw}^2/C{c}: bf16 err {err}, fp32 err {err32}, "
-                                     f"max |ref| {scale}")
-            head = (f"[K2] 32x{hw}x{hw}x{c} ({res}^2, x{per_fwd}/fwd): bf16 max |err| "
-                    f"{err:.4g} = {err / scale:.3g} of max |ref| (tol 2e-2); fp32 "
-                    f"{err32 / scale:.3g} (tol 1e-4)")
-            if quick:
-                log(head + " ok")
-                continue
-            ms = time_ms(lambda: sfconv_freq(x, w), warmup=2, iters=10)
-            plain = time_ms(lambda: sfconv_freq_spatial(x, w), warmup=2, iters=10)
-            bound, by = _k2_bound_ms(32, hw, hw, c)
-            log(f"{head}; kernel {ms:.4f} ms, plain(bf16) {plain:.4f} ms, bound {bound:.4f} ms "
-                f"({by}), {card}")
-            if res == 380:
-                per_forward["ms"] += per_fwd * ms
-                per_forward["plain_ms"] += per_fwd * plain
-                per_forward["bound_ms"] += per_fwd * bound
-            del x, w, got, ref, got32
-    if not quick:
-        log(f"[K2] per UDEB4 forward at 380^2 b32 (24 launches): kernel "
-            f"{per_forward['ms']:.3f} ms, plain {per_forward['plain_ms']:.3f} ms, bound "
-            f"{per_forward['bound_ms']:.3f} ms, {card}")
-    return dict(max_abs_err=worst_abs, **per_forward)
-
-
-def _k2_bwd_bound_ms(n, h, w, c) -> tuple[float, str]:
-    # K2-bwd alone: the four C x C weight sums over N*H*W pixel rows and one
-    # Hilbert product hm@x per image row; reads x and g once (bf16), writes
-    # the (4C, C) fp32 sums
-    flops = n * h * (8 * w * c * c + 2 * w * w * c)
-    nbytes = 2 * n * h * w * c * 2 + 4 * c * c * 4
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def phase_k2_bwd(quick: bool, card: str) -> dict:
-    """K2-bwd at every SFConv shape of 380^2 and 256^2, batch 20 (the
-    training batch): x_bar (K2 on the gradient) and w_bar (K2-bwd and the
-    repack) in bf16 and fp32 against the plain version in fp32."""
-    import torch
-
-    from unidefense_torch.ops.sfconv_cuda import (
-        _launch_dw, sfconv_freq_bwd, sfconv_freq_bwd_plain, weight_sums_plain)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    worst, per_bwd = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "whole_ms": 0.0}
-    for res, shapes in SFCONV_SHAPES.items():
-        for hw, c, per_fwd in shapes:
-            x = torch.randn(20, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
-            g = torch.randn(20, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
-            w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
-            ref_x, ref_w = sfconv_freq_bwd_plain(x.float(), g.float(), w)
-            got_x, got_w = sfconv_freq_bwd(x, g, w)
-            got32_x, got32_w = sfconv_freq_bwd(x.float(), g.float(), w)
-            torch.cuda.synchronize()
-            errs = []
-            for name, ref, got, got32 in (("x_bar", ref_x, got_x, got32_x),
-                                          ("w_bar", ref_w, got_w, got32_w)):
-                scale = ref.abs().max().item()
-                rel, rel32 = ((a.float() - ref).abs().max().item() / scale for a in (got, got32))
-                errs.append(f"{name} bf16 {rel:.3g} fp32 {rel32:.3g}")
-                worst = max(worst, rel * scale)
-                if not (rel <= 2e-2 and rel32 <= 1e-4):
-                    raise AssertionError(f"K2-bwd {hw}^2/C{c} {name}: bf16 rel err {rel}, "
-                                         f"fp32 rel err {rel32}, max |ref| {scale}")
-            head = (f"[K2-bwd] 20x{hw}x{hw}x{c} ({res}^2, x{per_fwd}/bwd): error over max |ref| "
-                    f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4)")
-            if quick:
-                log(head + " ok")
-                continue
-            ms = time_ms(lambda: _launch_dw(x, g), warmup=2, iters=10)
-            plain = time_ms(lambda: weight_sums_plain(x, g), warmup=2, iters=10)
-            whole = time_ms(lambda: sfconv_freq_bwd(x, g, w), warmup=2, iters=10)
-            bound, by = _k2_bwd_bound_ms(20, hw, hw, c)
-            log(f"{head}; K2-bwd kernel {ms:.4f} ms, plain(bf16) {plain:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}); whole backward (x_bar + K2-bwd + repack) {whole:.4f} ms, "
-                f"{card}")
-            if res == 380:
-                for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                               ("whole_ms", whole)):
-                    per_bwd[key] += per_fwd * v
-            del x, g, w, ref_x, ref_w, got_x, got_w, got32_x, got32_w
-    if not quick:
-        log(f"[K2-bwd] per UDEB4 backward at 380^2 b20 (24 launches): K2-bwd kernel "
-            f"{per_bwd['ms']:.3f} ms, plain {per_bwd['plain_ms']:.3f} ms, bound "
-            f"{per_bwd['bound_ms']:.3f} ms; whole backward {per_bwd['whole_ms']:.3f} ms, {card}")
-    return dict(max_abs_err=worst, **{k: v for k, v in per_bwd.items() if k != "whole_ms"})
+            rel, rel32 = ((a.float() - ref).abs().max().item() / scale for a in (got, got32))
+            errs.append(f"{part} bf16 {rel:.3g} fp32 {rel32:.3g}")
+            worst = max(worst, rel * scale)
+            if not (rel <= 2e-2 and rel32 <= 1e-4):
+                raise AssertionError(f"{name} {hw}^2/C{c} {part}: bf16 rel err {rel}, "
+                                     f"fp32 rel err {rel32}, max |ref| {scale}")
+        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): error over max |ref| "
+                f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4)")
+        del ref_x, ref_w, got_x, got_w, got32_x, got32_w
+        if quick:
+            log(head + " ok")
+            continue
+        ms = time_ms(spec["sums"](x, g), warmup=2, iters=10)
+        plain_ms = time_ms(spec["sums_plain"](x, g), warmup=2, iters=10)
+        whole = time_ms(lambda: bwd(x, g, w), warmup=2, iters=10)
+        bound, by = _sfconv_bound_ms(batch, hw, c, spec["hilberts"], spec["streams"],
+                                     4 * c * c * 4)
+        log(f"{head}; {name} kernel {ms:.4f} ms, plain(bf16) {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); whole backward (x_bar + sums + repack) {whole:.4f} ms, "
+            f"{card}")
+        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, whole_ms=whole, by=by)
+    return dict(max_abs_err=worst, **({} if quick else _summed(spec, per_shape, card)))
 
 
 def seeded_weights(card: str) -> dict:
@@ -310,50 +385,73 @@ def seeded_weights(card: str) -> dict:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
-def phase_serve(card: str, weights: dict) -> tuple[int, int]:
+def _route_wrappers() -> tuple:
+    """The wrappers of K1, K2, K2-bwd, K3 and K3-bwd, whose launches the
+    serving and training paths count."""
+    from unidefense_torch.ops.preprocess import normalize_flip
+    from unidefense_torch.ops.sfconv_cuda import sfconv_freq, sfconv_freq_bwd
+    from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v4, sfconv_freq_v4_bwd
+
+    return normalize_flip, sfconv_freq, sfconv_freq_bwd, sfconv_freq_v4, sfconv_freq_v4_bwd
+
+
+def _route_counts() -> tuple:
+    return tuple(f.launches for f in _route_wrappers())
+
+
+def _reset_counts() -> None:
+    for f in _route_wrappers():
+        f.launches = 0
+
+
+def phase_serve(card: str, weights: dict, v4_widths=frozenset(), tag: str = "serve") -> None:
+    """UDEB4 serving at 380^2 b32 bf16 on a route: 3 requests of 64 frames,
+    each batch checked for its K1, K2 and K3 launches."""
     import numpy as np
     import torch
 
     from unidefense_torch.inference import Predictor
-    from unidefense_torch.ops.preprocess import normalize_flip
-    from unidefense_torch.ops.sfconv_cuda import sfconv_freq
 
     pred = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=32,
-                     dtype=torch.bfloat16, device="cuda")
+                     dtype=torch.bfloat16, device="cuda", v4_widths=v4_widths)
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 256, (64, 380, 380, 3), dtype=np.uint8) for _ in range(3)]
     pred.predict_frames(requests[0][:32])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    normalize_flip.launches = 0
-    sfconv_freq.launches = 0
+    _reset_counts()
     times, probs = [], []
     for frames in requests:
         t0 = time.perf_counter()
         probs.append(pred.predict_frames(frames))
         times.append(time.perf_counter() - t0)
-    k1, k2 = normalize_flip.launches, sfconv_freq.launches
+    k1, k2, k2_bwd, k3, k3_bwd = _route_counts()
     batches = sum(-(-len(f) // 32) for f in requests)
-    if k1 != batches or k2 != 24 * batches:
-        raise AssertionError(f"launches K1 {k1}, K2 {k2}; expected {batches} and {24 * batches}")
+    per_k2, per_k3 = per_forward_launches(380, v4_widths)
+    want = (batches, per_k2 * batches, 0, per_k3 * batches, 0)
+    if (k1, k2, k2_bwd, k3, k3_bwd) != want:
+        raise AssertionError(f"launches K1, K2, K2-bwd, K3, K3-bwd = {(k1, k2, k2_bwd, k3, k3_bwd)}; "
+                             f"expected {want}")
     p = np.concatenate(probs)
     if p.shape != (192,) or not np.all(np.isfinite(p)) or p.min() < 0 or p.max() > 1:
         raise AssertionError(f"bad probabilities: shape {p.shape}, range [{p.min()}, {p.max()}]")
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_request = statistics.median(times) * 1e3
-    log(f"[serve] UDEB4 380^2 b32 bf16, 3 requests x 64 frames: {192 / sum(times):.2f} img/s, "
-        f"p50 {per_request:.2f} ms per request ({per_request / 2:.2f} ms per batch), peak memory "
-        f"{peak:.3f} GiB, launches K1 {k1} K2 {k2} over {batches} batches, probs in "
-        f"[{p.min():.4f}, {p.max():.4f}], {card}")
-    phase_profile(card, "one batch 380^2 b32 bf16", lambda: pred.predict_frames(requests[0][:32]))
-    return k1, k2
+    route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
+    log(f"[{tag}] UDEB4 380^2 b32 bf16 ({route}), 3 requests x 64 frames: {192 / sum(times):.2f} "
+        f"img/s, p50 {per_request:.2f} ms per request ({per_request / 2:.2f} ms per batch), peak "
+        f"memory {peak:.3f} GiB, launches K1 {k1} K2 {k2} K3 {k3} over {batches} batches "
+        f"({per_k2} K2 and {per_k3} K3 per batch), probs in [{p.min():.4f}, {p.max():.4f}], {card}")
+    phase_profile(card, f"one batch 380^2 b32 bf16 ({route})",
+                  lambda: pred.predict_frames(requests[0][:32]))
 
 
 # kernel-name fragments -> group of the device-time breakdown, first match wins
 KERNEL_GROUPS = (
-    ("K2-bwd weight sums", ("dw_wmma", "dw_fma", "reduce_splits")),
+    ("weight sums (K2-bwd, K3-bwd, K4-bwd)", ("dw_wmma", "dw_fma", "reduce_splits")),
     ("K2 channel mix", ("sfconv_mix_wmma", "sfconv_freq_fwd_kernel")),
-    ("Hilbert rows (K2, K2-bwd)", ("hilbert_rows",)),
+    ("K3/K4 row-tiled mix", ("rowtiled_mix",)),
+    ("Hilbert rows (all SFConv kernels)", ("hilbert_rows",)),
     ("K1 normalize_flip", ("normalize_flip",)),
     ("cuDNN convolutions", ("conv", "xmma", "implicit_gemm", "cudnn", "dgrad", "wgrad")),
     ("cuFFT", ("fft", "regular_fft", "vector_fft")),
@@ -391,14 +489,16 @@ def phase_profile(card: str, label: str, fn) -> None:
         f"(busy share {busy / wall_ms:.3f}), {len(kernels)} kernels; {parts}; {card}")
 
 
-def phase_parity(card: str, weights: dict) -> None:
+def phase_parity(card: str, weights: dict, v4_widths=frozenset(), tag: str = "parity") -> None:
+    """The card's fp32 and bf16 Predictor against the fp32 CPU Predictor on
+    the same route (the CPU takes the plain versions)."""
     import numpy as np
     import torch
 
     from unidefense_torch.inference import Predictor
 
     base = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=2,
-                     dtype=torch.float32, device="cpu")
+                     dtype=torch.float32, device="cpu", v4_widths=v4_widths)
     frames = np.random.default_rng(SEED + 3).integers(0, 256, (2, 380, 380, 3), dtype=np.uint8)
     ref = base.predict_frames(frames)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -406,13 +506,17 @@ def phase_parity(card: str, weights: dict) -> None:
     try:
         for dt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
             gpu = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=2, dtype=dt,
-                            device="cuda")
+                            device="cuda", v4_widths=v4_widths)
+            _reset_counts()
             got = gpu.predict_frames(frames)
+            k3 = _route_counts()[3]
+            if k3 != per_forward_launches(380, v4_widths)[1]:
+                raise AssertionError(f"{tag} {dt}: {k3} K3 launches")
             d = float(np.abs(got - ref).max())
-            log(f"[parity] {dt} cuda vs fp32 cpu Predictor: probs {got} vs {ref}, "
-                f"max |dprob| {d:.3g} (tol {tol}), {card}")
+            log(f"[{tag}] {dt} cuda vs fp32 cpu Predictor (v4_widths {sorted(v4_widths)}): probs "
+                f"{got} vs {ref}, max |dprob| {d:.3g} (tol {tol}), {card}")
             if not d <= tol:
-                raise AssertionError(f"parity {dt}: {d} > {tol}")
+                raise AssertionError(f"{tag} {dt}: {d} > {tol}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
@@ -443,20 +547,20 @@ def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
     return {"image": torch.from_numpy(frames).to(device), "label": labels.to(device)}
 
 
-def phase_train(card: str, weights: dict) -> tuple[int, int, int]:
+def phase_train(card: str, weights: dict, v4_widths=frozenset(), tag: str = "train") -> tuple:
     """The port's two-pass UDEB4 step at 380^2, 10 real + 10 fake, bf16, the
-    YAML's optimizer and drop rates: 2 warm-up steps, then 5 timed steps,
-    each checked for exactly 1 K1, 96 K2 and 48 K2-bwd launches."""
+    YAML's optimizer and drop rates, on a route: 2 warm-up steps, then 5
+    timed steps, each checked for its exact launches of K1, K2, K2-bwd, K3
+    and K3-bwd (two forwards, and two backwards that launch K2 or K3 on the
+    gradient and K2-bwd or K3-bwd). Returns the totals over the 5 steps."""
     import torch
 
     from unidefense_torch.data.transforms import DevicePipeline
     from unidefense_torch.models.registry import build_model
-    from unidefense_torch.ops.preprocess import normalize_flip
-    from unidefense_torch.ops.sfconv_cuda import sfconv_freq, sfconv_freq_bwd
     from unidefense_torch.train.optim import build_optimizer
     from unidefense_torch.train.step import create_train_state, make_train_step
 
-    model = build_model("UDEB4", UDEB4_MODEL, dtype=torch.bfloat16)
+    model = build_model("UDEB4", UDEB4_MODEL, dtype=torch.bfloat16, v4_widths=v4_widths)
     model.load_state_dict(weights, strict=True)
     tx, _ = build_optimizer(UDEB4_CONFIG)
     state = create_train_state(model, tx)
@@ -468,18 +572,21 @@ def phase_train(card: str, weights: dict) -> tuple[int, int, int]:
         step(state, batch, gen)
     groups = _groups_of(state.model)
     before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
+    per_k2, per_k3 = per_forward_launches(380, v4_widths)
+    want = (1, 4 * per_k2, 2 * per_k2, 4 * per_k3, 2 * per_k3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, losses, counts = [], [], (0, 0, 0)
+    times, losses, counts = [], [], (0,) * 5
     for _ in range(5):
-        normalize_flip.launches = sfconv_freq.launches = sfconv_freq_bwd.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         _, metrics, cls_out = step(state, batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        got = (normalize_flip.launches, sfconv_freq.launches, sfconv_freq_bwd.launches)
-        if got != (1, 96, 48):
-            raise AssertionError(f"launches per step K1, K2, K2-bwd = {got}; expected (1, 96, 48)")
+        got = _route_counts()
+        if got != want:
+            raise AssertionError(f"launches per step K1, K2, K2-bwd, K3, K3-bwd = {got}; "
+                                 f"expected {want}")
         counts = tuple(a + b for a, b in zip(counts, got))
         vals = {k: float(v) for k, v in metrics.items()}
         if not all(v == v and abs(v) < float("inf") for v in vals.values()) or \
@@ -494,22 +601,22 @@ def phase_train(card: str, weights: dict) -> tuple[int, int, int]:
         raise AssertionError(f"parameter groups that did not move: {frozen}")
     still = sum(m.count(False) for m in moved.values())
     ms = statistics.median(times) * 1e3
-    log(f"[train] UDEB4 380^2 b10+10 bf16 two-pass step, adamw amsgrad: {100 / sum(times):.2f} "
-        f"img/s over 5 steps, p50 {ms:.2f} ms per step (steps {[round(t * 1e3, 2) for t in times]}"
-        f" ms), peak memory {peak:.3f} GiB, launches per step K1 1 K2 96 K2-bwd 48 (total "
+    route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
+    log(f"[{tag}] UDEB4 380^2 b10+10 bf16 two-pass step ({route}), adamw amsgrad: "
+        f"{100 / sum(times):.2f} img/s over 5 steps, p50 {ms:.2f} ms per step (steps "
+        f"{[round(t * 1e3, 2) for t in times]} ms), peak memory {peak:.3f} GiB, launches per step "
+        f"K1 {want[0]} K2 {want[1]} K2-bwd {want[2]} K3 {want[3]} K3-bwd {want[4]} (total "
         f"{counts}), all {len(groups)} parameter groups moved ({still} of "
         f"{sum(map(len, moved.values()))} tensors did not), {card}")
-    log(f"[train] losses step 1: {losses[0]}; step 5: {losses[-1]}")
-    phase_profile(card, "one train step 380^2 b10+10 bf16", lambda: step(state, batch, gen))
+    log(f"[{tag}] losses step 1: {losses[0]}; step 5: {losses[-1]}")
+    phase_profile(card, f"one train step 380^2 b10+10 bf16 ({route})",
+                  lambda: step(state, batch, gen))
     return counts
 
 
-def phase_train_parity(card: str, weights: dict) -> None:
+def _parity_step(weights: dict, device: str, v4_widths) -> tuple[dict, dict]:
     """One deterministic two-pass step of UDEB4 at 256^2, 2 real + 2 fake,
-    fp32 on the card (K1, K2 and K2-bwd in fp32) against the same step on
-    the CPU, from the same weights and draws: every loss, and each
-    parameter's gradient (pass-1 plus pass-2, as update 2 applies it) by
-    the norm."""
+    fp32, from the given weights and fixed draws: (losses, gradient norms)."""
     import dataclasses
 
     import torch
@@ -525,35 +632,75 @@ def phase_train_parity(card: str, weights: dict) -> None:
     draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 7), 2, 2, (4, 256, 256, 3))
     draws = StepDraws(flip=torch.tensor([True, False, False, True]),
                       perturb=dataclasses.replace(draws, style=True, freq=True))
+    model = build_model("UDEB4", cfg, dtype=torch.float32, v4_widths=v4_widths)
+    model.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(UDEB4_CONFIG)
+    state = create_train_state(model, tx, device=device)
+    step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 2, 2,
+                           preprocess=DevicePipeline(hflip_p=0.5))
+    _, metrics, _ = step(state, _train_batch(2, 2, 256, SEED + 8, device), None, draws)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: float(p.grad.norm()) for n, p in state.model.named_parameters()
+             if p.grad is not None})
+
+
+def phase_train_parity(card: str, weights: dict) -> None:
+    """One deterministic two-pass step of UDEB4 at 256^2, 2 real + 2 fake,
+    fp32 on the card against the same step on the CPU (default route, plain
+    versions), from the same weights and draws: every loss, and each
+    parameter's gradient (pass-1 plus pass-2, as update 2 applies it) by
+    the norm. The card runs it twice: on the default route (K1, K2, K2-bwd
+    in fp32, [train-parity]) and on the K3 route {32, 16} ([train-parity-v4])."""
+    import torch
+
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    runs = {}
     try:
-        for device in ("cpu", "cuda"):
-            model = build_model("UDEB4", cfg, dtype=torch.float32)
-            model.load_state_dict(weights, strict=True)
-            tx, _ = build_optimizer(UDEB4_CONFIG)
-            state = create_train_state(model, tx, device=device)
-            step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 2, 2,
-                                   preprocess=DevicePipeline(hflip_p=0.5))
-            _, metrics, _ = step(state, _train_batch(2, 2, 256, SEED + 8, device), None, draws)
-            runs[device] = ({k: float(v) for k, v in metrics.items()},
-                            {n: float(p.grad.norm()) for n, p in state.model.named_parameters()
-                             if p.grad is not None})
+        lc, gc = _parity_step(weights, "cpu", frozenset())
+        total = sum(v * v for v in gc.values()) ** 0.5
+        for tag, widths in (("train-parity", frozenset()), ("train-parity-v4", V4_WIDTHS[256])):
+            _reset_counts()
+            lg, gg = _parity_step(weights, "cuda", widths)
+            k3, k3_bwd = _route_counts()[3:]
+            per_k3 = per_forward_launches(256, widths)[1]
+            if (k3, k3_bwd) != (4 * per_k3, 2 * per_k3):
+                raise AssertionError(f"{tag}: K3, K3-bwd launches {(k3, k3_bwd)}")
+            loss_err = max(abs(lg[k] - v) / max(abs(v), 1e-12) for k, v in lc.items())
+            # a tensor whose gradient is rounding noise (a BatchNorm bias feeding a
+            # 1x1 conv and a train-mode BatchNorm, which cancels any shift) is
+            # judged against the total norm, the rest against their own
+            grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
+            log(f"[{tag}] UDEB4 256^2 b2+2 fp32 two-pass step, cuda (v4_widths {sorted(widths)}, "
+                f"K3 {k3} K3-bwd {k3_bwd}) vs cpu (default route): losses max rel err "
+                f"{loss_err:.3g} (tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 "
+                f"|all|) {grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
+            if not (loss_err <= 1e-3 and grad_err <= 1e-2):
+                raise AssertionError(f"{tag}: losses {lc} vs {lg}; worst gradient {worst}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
-    loss_err = max(abs(lg[k] - v) / max(abs(v), 1e-12) for k, v in lc.items())
-    total = sum(v * v for v in gc.values()) ** 0.5
-    # a tensor whose gradient is rounding noise (a BatchNorm bias feeding a
-    # 1x1 conv and a train-mode BatchNorm, which cancels any shift) is
-    # judged against the total norm, the rest against their own
-    grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
-    log(f"[train-parity] UDEB4 256^2 b2+2 fp32 two-pass step, cuda vs cpu: losses max rel err "
-        f"{loss_err:.3g} (tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
-        f"{grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
-    if not (loss_err <= 1e-3 and grad_err <= 1e-2):
-        raise AssertionError(f"train parity: losses {lc} vs {lg}; worst gradient {worst}")
+
+
+def phase_bench(card: str) -> tuple[int, int]:
+    """The per-op A/B tool (path B) at its default shapes, batch 20, bf16,
+    2 timed calls per column: checks that K4 ran its forward and x_bar and
+    K4-bwd its sums on every call of the v3 column. The [K4] and [K4-bwd]
+    phases hold those kernels against their plain versions at these shapes
+    and batch, and time them per pass of this tool."""
+    from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v3, sfconv_freq_v3_bwd
+    from unidefense_torch.tools import bench_sfconv
+
+    iters = 2
+    shapes = bench_sfconv.SHAPES_256 + bench_sfconv.SHAPES_380
+    sfconv_freq_v3.launches = sfconv_freq_v3_bwd.launches = 0
+    bench_sfconv.run(iters=iters)
+    got = (sfconv_freq_v3.launches, sfconv_freq_v3_bwd.launches)
+    calls = (iters + 1) * len(shapes)  # one warm-up call per window
+    if got != (2 * calls, calls):
+        raise AssertionError(f"bench_sfconv: K4, K4-bwd launches {got}; expected "
+                             f"{(2 * calls, calls)}")
+    log(f"[bench_sfconv] {len(shapes)} shapes x {iters + 1} fwd+bwd calls per column, n 20 bf16: "
+        f"K4 {got[0]} launches, K4-bwd {got[1]}, {card}")
+    return got
 
 
 def main() -> int:
@@ -573,31 +720,40 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s)")
     phase_build()
     k1 = phase_k1(args.quick, card)
-    k2 = phase_k2(args.quick, card)
-    k2_bwd = phase_k2_bwd(args.quick, card)
+    k2, k2_bwd, k3, k3_bwd, k4, k4_bwd = (
+        (phase_sfconv_bwd if "sums" in spec else phase_sfconv_fwd)(spec, args.quick, card)
+        for spec in sfconv_kernels())
     if args.quick:
         log("[quick] kernels built and checked; no timing, serving or parity")
         return 0
     weights = seeded_weights(card)
-    phase_serve(card, weights)  # asserts its own K1 and K2 launch counts
+    phase_serve(card, weights)  # asserts its own K1, K2 and K3 launch counts
     phase_parity(card, weights)
-    k1_launches, k2_launches, k2_bwd_launches = phase_train(card, weights)
-    phase_train_parity(card, weights)
+    k1_launches, k2_launches, k2_bwd_launches, _, _ = phase_train(card, weights)
+    phase_serve(card, weights, V4_WIDTHS[380], "serve-v4")
+    phase_parity(card, weights, V4_WIDTHS[380], "parity-v4")
+    _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, V4_WIDTHS[380], "train-v4")
+    phase_train_parity(card, weights)  # [train-parity] and [train-parity-v4]
+    k4_launches, k4_bwd_launches = phase_bench(card)
+
+    def line(name, source, replaces, launches, measured):
+        return dict(name=name, route="cuda", source=f"unidefense_torch/csrc/{source}",
+                    replaces=f"unidefense_tpu/ops/{replaces}", launches=launches,
+                    max_abs_err=measured["max_abs_err"], ms=measured["ms"],
+                    plain_ms=measured["plain_ms"], bound_ms=measured["bound_ms"],
+                    bound_by=measured["bound_by"], library_ms=None)
 
     lines = [
-        dict(name="K1 normalize_flip", route="cuda", source="unidefense_torch/csrc/normalize_flip.cu",
-             replaces="unidefense_tpu/ops/pallas_preprocess.py:42", launches=k1_launches,
-             max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by="bytes", library_ms=None),
-        dict(name="K2 sfconv_freq_fwd", route="cuda", source="unidefense_torch/csrc/sfconv_freq_fwd.cu",
-             replaces="unidefense_tpu/ops/sfconv_pallas.py:169", launches=k2_launches,
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by="operations", library_ms=None),
-        dict(name="K2-bwd sfconv_freq_bwd", route="cuda",
-             source="unidefense_torch/csrc/sfconv_freq_bwd.cu",
-             replaces="unidefense_tpu/ops/sfconv_pallas.py:257", launches=k2_bwd_launches,
-             max_abs_err=k2_bwd["max_abs_err"], ms=k2_bwd["ms"], plain_ms=k2_bwd["plain_ms"],
-             bound_ms=k2_bwd["bound_ms"], bound_by="operations", library_ms=None),
+        line("K1 normalize_flip", "normalize_flip.cu", "pallas_preprocess.py:42", k1_launches, k1),
+        line("K2 sfconv_freq_fwd", "sfconv_freq_fwd.cu", "sfconv_pallas.py:169", k2_launches, k2),
+        line("K2-bwd sfconv_freq_bwd", "sfconv_freq_bwd.cu", "sfconv_pallas.py:257",
+             k2_bwd_launches, k2_bwd),
+        line("K3 sfconv_v4_fwd", "sfconv_v4.cu", "sfconv_pallas.py:549", k3_launches, k3),
+        line("K3-bwd sfconv_v4_bwd_dw", "sfconv_v4.cu", "sfconv_pallas.py:610", k3_bwd_launches,
+             k3_bwd),
+        line("K4 sfconv_v3_fwd", "sfconv_v3.cu", "sfconv_pallas.py:370", k4_launches, k4),
+        line("K4-bwd sfconv_v3_bwd_dw", "sfconv_v3.cu", "sfconv_pallas.py:437", k4_bwd_launches,
+             k4_bwd),
     ]
     log(card)
     log(json.dumps({"kernels": lines}))

@@ -180,9 +180,10 @@ def _b0_variables():
     return jm, _randomise(v)
 
 
-def _b0_model(variables):
+def _b0_model(variables, v4_widths=()):
     tm = build_model("UDEB4", {"extractor": "efficientnet-b0", "delimiter": B0_DELIMITER,
-                               "drop_connect_rate": 0.0, "feat_drop_rate": 0.0, "drop_rate": 0.0})
+                               "drop_connect_rate": 0.0, "feat_drop_rate": 0.0, "drop_rate": 0.0},
+                     v4_widths=v4_widths)
     tm.load_state_dict(state_dict_from_jax(variables), strict=True)
     return tm
 
@@ -358,28 +359,56 @@ def test_train_step_matches_jax(two_pass_runs, after):
             np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=atol, err_msg=name)
 
 
-def test_normal_train_step_matches_jax(b0):
-    """One single-pass step: losses rtol 1e-4, the gradient per tensor as
-    above, params atol 2.2·lr (one update), running statistics 1e-3."""
+@pytest.fixture(scope="module")
+def normal_step_jax(b0):
+    """One single-pass JAX step of the b0 twin, compiled once for every
+    route the port is held against; the flip mask of its key."""
     jm, v = b0
     tx_j = optax.chain(_recorder(), joptim.build_optimizer(CFG, v["params"])[0])
     jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
                            batch_stats=v["batch_stats"], opt_state=tx_j.init(v["params"]))
     jstep = jax.jit(jax_make_normal_train_step(jm, tx_j, CFG, SUM_REAL, SUM_FAKE,
                                                preprocess=JaxDevicePipeline(hflip_p=0.5)))
-    tx = RecordingAdam(**toptim.build_optimizer(CFG)[0].__dict__)
-    state = create_train_state(_b0_model(v), tx, device="cpu")
-    step = make_normal_train_step(tx, CFG, SUM_REAL, SUM_FAKE,
-                                  preprocess=DevicePipeline(hflip_p=0.5))
     frames, labels = _batch()
     key = jax.random.PRNGKey(3)
     _, kpre = jax.random.split(key)
     flip = np.array(jax.random.uniform(jax.random.split(kpre)[1], (N, 1, 1, 1)) < 0.5)
     jstate, jmet, _ = jstep(jstate, {"image": jnp.asarray(frames), "label": jnp.asarray(labels)},
                             key)
+    return jstate, jmet, flip
+
+
+# the port's SFConv routes: K2 everywhere, and K3 at every square SFConv
+# width of the b0 twin at 64² (16, 8, 4, 2); the JAX step runs its CPU
+# route, which computes the same function
+ROUTES = {"K2": (), "K3": (16, 8, 4, 2)}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_normal_train_step_matches_jax(b0, normal_step_jax, monkeypatch, route):
+    """One single-pass step: losses rtol 1e-4, the gradient per tensor as
+    above, params atol 2.2·lr (one update), running statistics 1e-3. On the
+    K3 route every SFConv frequency branch goes through sfconv_freq_v4."""
+    _, v = b0
+    jstate, jmet, flip = normal_step_jax
+    calls = {"v4": 0}
+    v4 = tl.sfconv_freq_v4
+
+    def counted(x, w):
+        calls["v4"] += 1
+        return v4(x, w)
+
+    monkeypatch.setattr(tl, "sfconv_freq_v4", counted)
+    tx = RecordingAdam(**toptim.build_optimizer(CFG)[0].__dict__)
+    state = create_train_state(_b0_model(v, ROUTES[route]), tx, device="cpu")
+    step = make_normal_train_step(tx, CFG, SUM_REAL, SUM_FAKE,
+                                  preprocess=DevicePipeline(hflip_p=0.5))
+    frames, labels = _batch()
     state, tmet, _ = step(state, {"image": torch.from_numpy(frames),
                                   "label": torch.from_numpy(labels)}, None,
                           StepDraws(flip=torch.from_numpy(flip.reshape(-1))))
+    sfconvs = sum(isinstance(m, tl.SFConv) for m in state.model.modules())
+    assert calls["v4"] == (sfconvs if ROUTES[route] else 0)
     assert state.step == 1 and set(tmet) == set(jmet)
     for k in jmet:
         np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=1e-4, err_msg=k)

@@ -9,7 +9,7 @@ Example:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -33,13 +33,16 @@ def resize_frames(frames_u8: np.ndarray, size: int) -> np.ndarray:
 
 class Predictor:
     """Runs on ``cuda`` unless ``device`` says otherwise. Without
-    ``state_dict`` the weights are random, drawn from ``seed``."""
+    ``state_dict`` the weights are random, drawn from ``seed``.
+    ``v4_widths``: the SFConv widths routed to K3 (default ``UD_SFCONV_V4``,
+    see ``models/layers.SFConv``)."""
 
     def __init__(self, model_name: str, model_cfg: Optional[dict] = None,
                  state_dict: Optional[dict] = None, input_size: int = 256,
                  batch_size: int = 32, dtype: torch.dtype = torch.bfloat16,
                  mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 v4_widths: Optional[Iterable[int]] = None):
         self.device = resolve_device(device)
         self.model_name = model_name
         self.model_cfg = dict(model_cfg or {})
@@ -48,7 +51,7 @@ class Predictor:
         self.dtype = dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = build_model(model_name, self.model_cfg, dtype=dtype)
+            model = build_model(model_name, self.model_cfg, dtype=dtype, v4_widths=v4_widths)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()

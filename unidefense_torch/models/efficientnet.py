@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -111,7 +111,8 @@ def drop_connect(x: torch.Tensor, rate: float,
 class MBConvBlock(nn.Module):
     """Mobile inverted residual bottleneck with SE."""
 
-    def __init__(self, spec: BlockSpec, dtype: Optional[torch.dtype] = None):
+    def __init__(self, spec: BlockSpec, dtype: Optional[torch.dtype] = None,
+                 v4_widths: Iterable[int] = ()):
         super().__init__()
         self.spec = spec
         inp = spec.input_filters
@@ -121,7 +122,8 @@ class MBConvBlock(nn.Module):
             self._bn0 = _bn(oup, dtype)
         k, s = spec.kernel_size, spec.stride
         if spec.freq_norm is not None:
-            self._depthwise_conv = SFConv(oup, k, s, "SAME", groups=oup, bias=False, dtype=dtype)
+            self._depthwise_conv = SFConv(oup, k, s, "SAME", groups=oup, bias=False, dtype=dtype,
+                                          v4_widths=v4_widths)
         else:
             self._depthwise_conv = Conv(oup, oup, k, s, "SAME", groups=oup, bias=False,
                                         dtype=dtype)
@@ -155,10 +157,12 @@ class MBConvBlock(nn.Module):
 
 class EfficientNet(nn.Module):
     """Backbone without the top, with per-block access so wrappers can run
-    delimiter-bounded block ranges."""
+    delimiter-bounded block ranges. ``v4_widths``: the SFConv widths routed
+    to K3 (see ``layers.SFConv``)."""
 
     def __init__(self, model_name: str = "efficientnet-b4", freq_norm: Optional[str] = "ortho",
-                 drop_connect_rate: float = 0.2, dtype: Optional[torch.dtype] = None):
+                 drop_connect_rate: float = 0.2, dtype: Optional[torch.dtype] = None,
+                 v4_widths: Iterable[int] = ()):
         super().__init__()
         w = PARAMS[model_name][0]
         self.drop_connect_rate = drop_connect_rate
@@ -167,7 +171,7 @@ class EfficientNet(nn.Module):
         self.head_filters = round_filters(1280, w)
         self._conv_stem = Conv(3, stem, 3, 2, "SAME", bias=False, dtype=dtype)
         self._bn0 = _bn(stem, dtype)
-        self._blocks = nn.ModuleList(MBConvBlock(s, dtype) for s in self.specs)
+        self._blocks = nn.ModuleList(MBConvBlock(s, dtype, v4_widths) for s in self.specs)
         self._conv_head = Conv(self.specs[-1].output_filters, self.head_filters, 1, 1, "SAME",
                                bias=False, dtype=dtype)
         self._bn1 = _bn(self.head_filters, dtype)

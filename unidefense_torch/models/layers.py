@@ -11,7 +11,7 @@ state dicts of ``models/convert.py`` load strictly.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Iterable, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from unidefense_torch.device import nchw, nhwc, optional_dtype
 from unidefense_torch.ops.resize import adaptive_avg_pool
 from unidefense_torch.ops.sfconv_cuda import sfconv_freq
+from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v4, uses_v4
 
 Padding = Union[str, int]
 
@@ -164,22 +165,33 @@ class SFConv(Conv):
     ``sfconv_freq``), average-pooled to the spatial output when strided.
 
     Parameter names follow the reference: ``weight`` (the spatial conv),
-    ``freq_conv.weight`` (2C, 2C, 1, 1) and the scalar ``sf_coef``."""
+    ``freq_conv.weight`` (2C, 2C, 1, 1) and the scalar ``sf_coef``.
+
+    The frequency branch runs K2 (``sfconv_freq``), or K3
+    (``sfconv_freq_v4``) for a square input whose width is in ``v4_widths``
+    and that the K2 gate of the JAX model does not take first
+    (``sfconv_rowtiled.uses_v4``). ``registry.build_model`` reads its
+    default from ``UD_SFCONV_V4``; here it defaults to none (K2
+    everywhere)."""
 
     def __init__(self, channels: int, kernel_size: int, stride: int = 1,
                  padding: Padding = 0, groups: int = 1, bias: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 v4_widths: Iterable[int] = ()):
         super().__init__(channels, channels, kernel_size, stride, padding, groups, bias,
                          dtype=dtype)
         self.freq_conv = nn.Conv2d(2 * channels, 2 * channels, 1, bias=False)
         self.sf_coef = nn.Parameter(torch.tensor(-10.0))
+        self.v4_widths = frozenset(v4_widths)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         spat = super().forward(x)
         xc = x.to(self.compute_dtype).contiguous(memory_format=torch.channels_last)
         # rows of w_packed are packed input channels: the (out, in) conv weight, transposed
         w_packed = self.freq_conv.weight[:, :, 0, 0].t()
-        freq = sfconv_freq(nhwc(xc), w_packed).float()
+        x_nhwc = nhwc(xc)
+        branch = sfconv_freq_v4 if uses_v4(x_nhwc.shape, self.v4_widths) else sfconv_freq
+        freq = branch(x_nhwc, w_packed).float()
         if freq.shape[1:3] != spat.shape[2:4]:
             freq = adaptive_avg_pool(freq, spat.shape[2], spat.shape[3])
         freq = nchw(freq).to(spat.dtype)

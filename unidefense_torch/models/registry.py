@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
 from unidefense_torch.models.unidefense import UniDefenseModelEb4
+from unidefense_torch.ops.sfconv_rowtiled import default_v4_widths
 
 MODEL = {"UDEB4": UniDefenseModelEb4}
 _NOT_PORTED = {"UDR18": "ROADMAP.md queue 1, UDR18/UDR50",
@@ -29,10 +30,15 @@ def load_model(name: str = "UDEB4"):
     return MODEL[key]
 
 
-def build_model(name: str, model_cfg: dict, dtype: Optional[torch.dtype] = None):
-    """Construct a model (fp32 params, on the CPU) from `model:` kwargs."""
+def build_model(name: str, model_cfg: dict, dtype: Optional[torch.dtype] = None,
+                v4_widths: Optional[Iterable[int]] = None):
+    """Construct a model (fp32 params, on the CPU) from `model:` kwargs.
+    ``v4_widths``: the SFConv widths routed to K3; None reads them from
+    ``UD_SFCONV_V4``, here and nowhere else."""
     cls = load_model(name)
     kwargs = {k: model_cfg[k] for k in _KEYS if k in model_cfg}
     if "bias" in model_cfg:
         kwargs["use_bias"] = model_cfg["bias"]
-    return cls(dtype=dtype, **kwargs)
+    if v4_widths is None:
+        v4_widths = default_v4_widths()
+    return cls(dtype=dtype, v4_widths=v4_widths, **kwargs)

@@ -10,7 +10,7 @@ channels_last; ``rec`` and the masks come back NCHW.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -81,19 +81,20 @@ class UniDefenseModelEb4(nn.Module):
     the decoder-input dropout (``feat_drop_rate``), the attention's
     embedding dropout and the dropout after the bottleneck (``drop_rate``)
     draw their masks from ``generator``; with all rates 0 the forward is
-    deterministic."""
+    deterministic. ``v4_widths``: the SFConv widths routed to K3 (see
+    ``layers.SFConv``; default none)."""
 
     def __init__(self, extractor: str = "efficientnet-b4", num_classes: int = 2,
                  drop_rate: float = 0.2, drop_connect_rate: float = 0.2,
                  feat_drop_rate: float = 0.2, use_bias: bool = False, affine: bool = True,
                  delimiter: Optional[Sequence[int]] = None, freq_norm: str = "ortho",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
         super().__init__()
         self.freq_norm = freq_norm
         self.compute_dtype = dtype
         self.drop_rate = drop_rate
         self.feat_drop_rate = feat_drop_rate
-        self.backbone = EfficientNet(extractor, freq_norm, drop_connect_rate, dtype)
+        self.backbone = EfficientNet(extractor, freq_norm, drop_connect_rate, dtype, v4_widths)
         self.delimiter = list(delimiter or DELIMITER_DICT[extractor])
         specs = self.backbone.specs
         d = self.delimiter

@@ -5,8 +5,9 @@ with its custom VJP).
 ``sfconv_freq`` launches ``csrc/sfconv_freq_fwd.cu`` for a CUDA tensor and
 runs the plain version (``ops/sfconv_spatial.sfconv_freq_spatial``) with its
 autograd for a CPU tensor. Unlike the TPU path there is no width gate: on the
-card every SFConv frequency branch goes through the kernel, and its backward
-(:func:`sfconv_freq_bwd`) launches K2 on the gradient for x̄ and
+card every SFConv frequency branch goes through K2, unless the model's
+``v4_widths`` route sends it to K3 (``ops/sfconv_rowtiled.py``), and its
+backward (:func:`sfconv_freq_bwd`) launches K2 on the gradient for x̄ and
 ``csrc/sfconv_freq_bwd.cu`` for the four weight sums.
 """
 
@@ -80,20 +81,37 @@ def _dw_splits(pixels: int, c: int) -> int:
     return max(1, min(-(-_DW_BLOCKS // tiles), -(-pixels // _DW_MIN_ROWS)))
 
 
+def _check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    """x as every SFConv kernel takes it, each other tensor of x's shape,
+    dtype and device, and all of them contiguous and 16-byte aligned."""
+    _check_input(x, what)
+    for t in others:
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: every operand must be a contiguous tensor of x's shape, "
+                             "dtype and device")
+    if any(t.data_ptr() % 16 for t in (x, *others)):
+        raise ValueError(f"{what} reads 16 bytes at a time: its operands must be 16-byte aligned")
+
+
+def _sums_scratch(x: torch.Tensor):
+    """(splits, the (4C, C) fp32 sums, the (splits, 4C, C) fp32 workspace or
+    None) of one weight-sum launch on x."""
+    n, h, w, c = x.shape
+    splits = _dw_splits(n * h * w, c)
+    out = torch.empty(4 * c, c, dtype=torch.float32, device=x.device)
+    ws = torch.empty(splits, 4 * c, c, dtype=torch.float32, device=x.device) if splits > 1 else None
+    return splits, out, ws
+
+
 def _launch_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K2-bwd: (4C, C) fp32 sums [x | hx | R(x) | R(hx)]ᵀ g (A2's block not
     negated), hx = round(hm @ x) per image row."""
-    _check_input(x, "sfconv_freq_bwd")
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
-        raise ValueError("g must be a contiguous tensor of x's shape, dtype and device")
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("sfconv_freq_bwd reads 16 bytes at a time: x and g must be 16-byte aligned")
+    _check_operands("sfconv_freq_bwd", x, g)
     n, h, w, c = x.shape
-    splits = _dw_splits(n * h * w, c)
+    splits, out, ws = _sums_scratch(x)
     hm = _device_hilbert(w, x.dtype, x.device)
     hx = torch.empty_like(x)
-    out = torch.empty(4 * c, c, dtype=torch.float32, device=x.device)
-    ws = torch.empty(splits, 4 * c, c, dtype=torch.float32, device=x.device) if splits > 1 else None
     fn = _build.function("sfconv_freq_bwd", "ud_sfconv_freq_bwd_dw", 6, 6)
     err = fn(x.data_ptr(), g.data_ptr(), hm.data_ptr(), hx.data_ptr(),
              None if ws is None else ws.data_ptr(), out.data_ptr(), n, h, w, c, splits,
