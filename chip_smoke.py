@@ -9,10 +9,12 @@ Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
 K2 on the gradient for x_bar), K3 (sfconv_freq_v4, split output), K3-bwd,
 K4 (sfconv_freq_v3, over a materialised double reversal) and K4-bwd
 against their plain PyTorch versions on the card at the shapes the serving
-and training paths and the per-op A/B tool give them, timing each; serve
-UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with seeded random
-weights and check that
-every batch went through K1 and K2; compare the card's fp32 and bf16
+and training paths and the per-op A/B tool give them, timing each (K2 also
+as its Hilbert pass and its mix apart, K2 and K2-bwd beside a cuBLAS
+product of the same shape as a yardstick), and checking that two runs of
+each bf16 weight-sum kernel agree bit for bit; serve UDEB4 at 380x380,
+batch 32, bf16 through ``Predictor`` with seeded random weights and check
+that every batch went through K1 and K2; compare the card's fp32 and bf16
 Predictor with the CPU Predictor; train UDEB4 at 380x380, 10 real + 10
 fake, bf16, with the two-pass step and the optimizer of
 config_template/forgery/model_udeb4.yml, checking every step's launches of
@@ -104,7 +106,7 @@ def phase_build():
         f"(nvcc wall {_build.build_seconds:.2f} s)")
     for name, text in _build.build_logs().items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "smem", "warning")):
                 log(f"[ptxas {name}] {line.strip()}")
 
 
@@ -166,6 +168,66 @@ def sfconv_check_shapes() -> list[tuple[int, int, str]]:
     return [(hw, c, origin) for (hw, c), origin in shapes.items()]
 
 
+def _k2_operand(x):
+    """[x | hx | R(x) | R(hx)] as one (P, 4C) matrix, hx = hm @ x per image
+    row: K2's two products as one, for the cuBLAS yardstick."""
+    import torch
+
+    from unidefense_torch.ops.sfconv_spatial import double_reversal, hilbert_row_matrix
+
+    hm = hilbert_row_matrix(x.shape[2]).to(device=x.device, dtype=x.dtype)
+    hx = torch.einsum("dv,nhvc->nhdc", hm, x)
+    a = torch.cat([x, hx, double_reversal(x), double_reversal(hx)], dim=-1)
+    return a.reshape(-1, 4 * x.shape[-1]).contiguous()
+
+
+def k2_gemm(x, w):
+    """cuBLAS yardstick of K2, never called by the port: (P, 4C) @ (4C, C) in
+    x's dtype, the operand materialised beforehand."""
+    import torch
+
+    a = _k2_operand(x)
+    b = torch.randn(a.shape[1], x.shape[-1], device=x.device).to(x.dtype)
+    return lambda: torch.matmul(a, b)
+
+
+def k2_bwd_gemm(x, g):
+    """cuBLAS yardstick of K2-bwd's sums: A^T g with A = [x | hx | R(x) | R(hx)]."""
+    import torch
+
+    a, gm = _k2_operand(x), g.reshape(-1, g.shape[-1])
+    return lambda: torch.matmul(a.t(), gm)
+
+
+def k2_parts(x, w):
+    """K2's Hilbert pass and its mix as separate calls (bf16; each with
+    K2's block split): (the Hilbert pass, the mix on its hx)."""
+    from functools import partial
+
+    from unidefense_torch.ops import sfconv_cuda as k2
+
+    hx = k2._launch(x, w, part="hilbert")
+    return partial(k2._launch, x, w, part="hilbert"), partial(k2._launch, x, w, part="mix", hx=hx)
+
+
+def k2_split_check(x, w):
+    """K2's block split on the card against its plain version, bit for bit,
+    for the forward and for x_bar, from a row-major kernel and from a
+    column-major view (as the model passes its weight)."""
+    import torch
+
+    from unidefense_torch.ops import sfconv_cuda as k2
+
+    c = x.shape[-1]
+    for wv in (w, w.t().contiguous().t()):
+        for transposed in (False, True):
+            for dt in (torch.bfloat16, torch.float32):
+                got = k2._split_blocks(wv, c, dt, transposed)
+                if not torch.equal(got, k2._added_blocks(wv, c, transposed).to(dt)):
+                    raise AssertionError(f"K2 block split C{c} {dt} transposed={transposed} "
+                                         f"strides {wv.stride()} differs from its plain version")
+
+
 def sfconv_kernels() -> list[dict]:
     """The SFConv frequency kernels K2 to K4-bwd: each with its wrapper and
     plain version, its check batch and seed, the terms of its bound, and
@@ -193,11 +255,12 @@ def sfconv_kernels() -> list[dict]:
 
     return [
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
-             hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32"),
+             hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32",
+             parts=k2_parts, gemm=k2_gemm, check=k2_split_check),
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
              seed=SEED + 4, hilberts=1, streams=2, counts=fwd,
              sums=lambda x, g: partial(k2._launch_dw, x, g),
-             sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g),
+             sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g), gemm=k2_bwd_gemm,
              workload="per UDEB4 backward at 380^2 b20"),
         dict(name="K3", fn=rt.sfconv_freq_v4, plain=rt.sfconv_freq_v4_plain, batch=32,
              seed=SEED + 10, hilberts=1, streams=3, counts=v4,
@@ -218,19 +281,22 @@ def sfconv_kernels() -> list[dict]:
 
 def _summed(spec: dict, per_shape: dict, card: str) -> dict:
     """The per-shape times of a kernel weighted by the launches of its
-    workload, logged; whole_ms (a backward's) is logged only. The sum is
-    bound by operations where the shapes bound by operations carry most of
-    its bound."""
+    workload, logged; the extra readings (a backward's whole_ms, K2's
+    hilbert_ms and mix_ms, the cuBLAS yardstick gemm_ms) are logged only. The
+    sum is bound by operations where the shapes bound by operations carry
+    most of its bound."""
     counts = spec["counts"]
     keys = [key for key in next(iter(per_shape.values())) if key != "by"]
     total = {key: sum(n * per_shape[k][key] for k, n in counts.items()) for key in keys}
     by_ops = sum(n * per_shape[k]["bound_ms"] for k, n in counts.items()
                  if per_shape[k]["by"] == "operations")
     total["bound_by"] = "operations" if 2 * by_ops >= total["bound_ms"] else "bytes"
-    whole = f"; whole backward {total.pop('whole_ms'):.3f} ms" if "whole_ms" in total else ""
+    names = {"whole_ms": "whole backward", "hilbert_ms": "Hilbert pass", "mix_ms": "mix",
+             "gemm_ms": "cuBLAS yardstick"}
+    extra = "".join(f"; {names[k]} {total.pop(k):.3f} ms" for k in names if k in total)
     log(f"[{spec['name']}] {spec['workload']} ({sum(counts.values())} launches): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms{whole}, {card}")
+        f"{total['bound_ms']:.3f} ms{extra}, {card}")
     return total
 
 
@@ -247,6 +313,8 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
     for hw, c, origin in sfconv_check_shapes():
         x = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
+        if "check" in spec:
+            spec["check"](x, w)
         got = fn(x, w)
         ref = plain(x.float(), w)
         got32 = fn(x.float(), w)
@@ -268,9 +336,19 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
         plain_ms = time_ms(lambda: plain(x, w), warmup=2, iters=10)
         bound, by = _sfconv_bound_ms(batch, hw, c, spec["hilberts"], spec["streams"],
                                      4 * c * c * 2)
-        log(f"{head}; kernel {ms:.4f} ms, plain(bf16) {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({by}), {card}")
-        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by)
+        extra = {}
+        if "parts" in spec:
+            hilbert, mix = spec["parts"](x, w)
+            extra.update(hilbert_ms=time_ms(hilbert, warmup=2, iters=10),
+                         mix_ms=time_ms(mix, warmup=2, iters=10))
+            del hilbert, mix
+        if "gemm" in spec:
+            extra["gemm_ms"] = time_ms(spec["gemm"](x, w), warmup=2, iters=10)
+            torch.cuda.empty_cache()
+        parts = "".join(f", {k[:-3]} {v:.4f} ms" for k, v in extra.items())
+        log(f"{head}; kernel {ms:.4f} ms{parts}, plain(bf16) {plain_ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}), {card}")
+        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by, **extra)
     return dict(max_abs_err=worst_abs, **({} if quick else _summed(spec, per_shape, card)))
 
 
@@ -304,21 +382,30 @@ def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
             if not (rel <= 2e-2 and rel32 <= 1e-4):
                 raise AssertionError(f"{name} {hw}^2/C{c} {part}: bf16 rel err {rel}, "
                                      f"fp32 rel err {rel32}, max |ref| {scale}")
-        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): error over max |ref| "
-                f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4)")
         del ref_x, ref_w, got_x, got_w, got32_x, got32_w
+        sums = spec["sums"](x, g)
+        if not torch.equal(sums(), sums()):  # split-K with a fixed-order reduction
+            raise AssertionError(f"{name} {hw}^2/C{c}: two bf16 sums runs differ")
+        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): error over max |ref| "
+                f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4); bf16 sums repeat bit for bit")
         if quick:
             log(head + " ok")
             continue
-        ms = time_ms(spec["sums"](x, g), warmup=2, iters=10)
+        ms = time_ms(sums, warmup=2, iters=10)
         plain_ms = time_ms(spec["sums_plain"](x, g), warmup=2, iters=10)
         whole = time_ms(lambda: bwd(x, g, w), warmup=2, iters=10)
         bound, by = _sfconv_bound_ms(batch, hw, c, spec["hilberts"], spec["streams"],
                                      4 * c * c * 4)
-        log(f"{head}; {name} kernel {ms:.4f} ms, plain(bf16) {plain_ms:.4f} ms, bound "
+        extra = {}
+        if "gemm" in spec:
+            extra["gemm_ms"] = time_ms(spec["gemm"](x, g), warmup=2, iters=10)
+            torch.cuda.empty_cache()
+        gemm = f", cuBLAS A^T g {extra['gemm_ms']:.4f} ms" if extra else ""
+        log(f"{head}; {name} kernel {ms:.4f} ms, plain(bf16) {plain_ms:.4f} ms{gemm}, bound "
             f"{bound:.4f} ms ({by}); whole backward (x_bar + sums + repack) {whole:.4f} ms, "
             f"{card}")
-        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, whole_ms=whole, by=by)
+        per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, whole_ms=whole, by=by,
+                                  **extra)
     return dict(max_abs_err=worst, **({} if quick else _summed(spec, per_shape, card)))
 
 
@@ -448,8 +535,8 @@ def phase_serve(card: str, weights: dict, v4_widths=frozenset(), tag: str = "ser
 
 # kernel-name fragments -> group of the device-time breakdown, first match wins
 KERNEL_GROUPS = (
-    ("weight sums (K2-bwd, K3-bwd, K4-bwd)", ("dw_wmma", "dw_fma", "reduce_splits")),
-    ("K2 channel mix", ("sfconv_mix_wmma", "sfconv_freq_fwd_kernel")),
+    ("weight sums (K2-bwd, K3-bwd, K4-bwd)", ("dw_wgmma", "dw_fma", "reduce_splits")),
+    ("K2 channel mix", ("sfconv_mix_wgmma", "sfconv_freq_fwd_kernel")),
     ("K3/K4 row-tiled mix", ("rowtiled_mix",)),
     ("Hilbert rows (all SFConv kernels)", ("hilbert_rows",)),
     ("K1 normalize_flip", ("normalize_flip",)),

@@ -107,13 +107,24 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     assert _launches() == before
 
 
+def _too_many_row_groups():
+    """A bf16 input whose 65,536 image rows of width 65 (one per mix tile)
+    exceed the grid; allocated, never written."""
+    return torch.empty(1, 65_536, 65, 8, dtype=torch.bfloat16)
+
+
 def test_k2_rejects_bf16_widths_off_the_tensor_core_tiles(monkeypatch):
     """The bf16 kernel reads channels 8 at a time; any other width is refused
-    before a build or a launch."""
+    before a build or a launch, and so is an input with more row groups than
+    the mix's grid takes."""
     monkeypatch.setattr(_build, "uses_kernel", lambda t: True)
     x = torch.randn(1, 4, 4, 5).to(torch.bfloat16)
     with pytest.raises(ValueError, match="C % 8"):
         sfconv_cuda.sfconv_freq(x, torch.randn(10, 10))
+    before = _launches()
+    with pytest.raises(ValueError, match="row groups"):
+        sfconv_cuda.sfconv_freq(_too_many_row_groups(), torch.randn(16, 16))
+    assert _launches() == before
 
 
 def test_wrappers_do_not_count_plain_calls():
@@ -130,7 +141,8 @@ def test_wrappers_do_not_count_plain_calls():
 
 def test_k2_bwd_rejects_what_it_cannot_take(monkeypatch):
     """K2-bwd's entry refuses bf16 widths off the 16-byte loads and widths
-    past its shared-memory Hilbert matrix, before a build or a launch."""
+    past its shared-memory Hilbert matrix, and its x̄ launch an input with
+    more row groups than K2's grid, before a build or a launch."""
     monkeypatch.setattr(_build, "uses_kernel", lambda t: True)
     x = torch.randn(1, 4, 4, 12).to(torch.bfloat16)
     with pytest.raises(ValueError, match="C % 8"):
@@ -138,6 +150,10 @@ def test_k2_bwd_rejects_what_it_cannot_take(monkeypatch):
     x = torch.randn(1, 2, 130, 2)
     with pytest.raises(ValueError, match="W <= 128"):
         sfconv_cuda._launch_dw(x, x.clone())
+    # x_bar runs through K2, whose mix refuses more row groups than its grid
+    x = _too_many_row_groups()
+    with pytest.raises(ValueError, match="row groups"):
+        sfconv_cuda.sfconv_freq_bwd(x, x, torch.randn(16, 16))
 
 
 @pytest.mark.parametrize("launch,nstreams", [

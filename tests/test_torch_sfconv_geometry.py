@@ -1,0 +1,103 @@
+"""Launch geometry of K2's bf16 channel mix and of the bf16 weight sums
+(K2-bwd, K3-bwd, K4-bwd), which the CUDA kernels take from
+``ops/sfconv_cuda.py``: tiles, ring stages, shared memory, grids, the rows
+each tile loads (the mirror operand is double_reversal's rows) and the
+split-K ranges. The kernels run only on the card; what they are told to do
+is checked here, at every SFConv shape of UDEB4 at 380² and 256² and of the
+per-op A/B tool."""
+
+import pytest
+import torch
+
+from unidefense_torch.ops import sfconv_cuda as k2
+from unidefense_torch.ops.sfconv_spatial import (
+    double_reversal, hilbert_row_matrix, sfconv_freq_blocks, sfconv_freq_spatial)
+
+# (H=W, C): UDEB4 at 380² and 256², then the A/B tool's 80²/C192 and 12²/C960
+SHAPES = [(95, 192), (48, 336), (24, 672), (24, 960), (12, 1632),
+          (64, 192), (32, 336), (16, 672), (16, 960), (8, 1632),
+          (80, 192), (12, 960)]
+BATCHES = [1, 20, 32]  # one frame, a training step (10 + 10), a serving batch
+_ids = [f"{hw}x{c}" for hw, c in SHAPES]
+
+
+@pytest.mark.parametrize("n", BATCHES)
+@pytest.mark.parametrize("hw,c", SHAPES, ids=_ids)
+def test_mix_geometry_fits_the_card(hw, c, n):
+    g = k2.mix_geometry(n, hw, hw, c)
+    assert g.smem <= k2.SMEM_LIMIT
+    assert g.grid[0] * g.bn >= c > (g.grid[0] - 1) * g.bn
+    assert g.grid[1] == g.groups <= k2.GRID_YZ_LIMIT and g.grid[2] == 1
+    assert 1 <= g.rows and g.rows * hw <= 128 < (g.rows + 1) * hw
+    assert g.groups * g.rows >= n * hw > (g.groups - 1) * g.rows
+    assert g.stages >= 3
+    # 64-channel tiles only where 128 would pad more than a fifth of C
+    assert g.bn == (64 if c == 192 else 128)
+
+
+@pytest.mark.parametrize("hw,c", SHAPES, ids=_ids)
+def test_mix_tiles_load_every_pixel_once_and_its_mirror(hw, c):
+    """Gathering x at each tile row's mirror pixel gives double_reversal(x)
+    at the tile row's core pixel; the core rows cover every pixel once."""
+    n = 2
+    g = k2.mix_geometry(n, hw, hw, c)
+    core, mirror = k2.mix_tile_pixels(n, hw, hw, g.rows)
+    assert core.shape == mirror.shape == (g.groups, 128)
+    valid = core >= 0
+    assert torch.equal(valid, mirror >= 0)
+    assert torch.equal(core[valid].sort().values, torch.arange(n * hw * hw))
+    x = torch.arange(n * hw * hw * 3, dtype=torch.float64).reshape(n, hw, hw, 3)
+    flat, rev = x.reshape(-1, 3), double_reversal(x).reshape(-1, 3)
+    assert torch.equal(flat[mirror[valid]], rev[core[valid]])
+    # each tile's valid rows are its first R*W rows (fewer in the last tile)
+    counts = valid.sum(dim=1)
+    assert bool((counts[:-1] == g.rows * hw).all()) and 0 < counts[-1] <= g.rows * hw
+    assert torch.equal(valid, torch.arange(128) < counts[:, None])
+
+
+@pytest.mark.parametrize("n", BATCHES)
+@pytest.mark.parametrize("hw,c", SHAPES, ids=_ids)
+def test_sums_geometry_splits_whole_rows(hw, c, n):
+    s = k2.sums_geometry(n, hw, hw, c)
+    assert s.smem <= k2.SMEM_LIMIT
+    assert s.grid == (s.tiles, 2 * s.tiles, s.splits)
+    assert s.tiles * 128 >= c > (s.tiles - 1) * 128
+    assert max(s.grid[1:]) <= k2.GRID_YZ_LIMIT
+    ranges = s.ranges(n * hw)
+    assert len(ranges) == s.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == n * hw
+    assert all(b < e for b, e in ranges)  # no split is empty
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(s.splits - 1))
+    assert s.workspace == (s.splits * 4 * c * c * 4 if s.splits > 1 else 0)
+    assert s.workspace <= 64 * 2**20
+    if s.splits > 1:  # each split sums at least 1024 pixel rows but the last
+        assert all((e - b) * hw >= 1024 or e == n * hw for b, e in ranges)
+
+
+def test_mix_geometry_refuses_a_grid_it_cannot_launch():
+    with pytest.raises(ValueError, match="row groups"):
+        k2.mix_geometry(1, 65_536, 65, 8)
+
+
+def _added_plain(x, blocks):
+    """What the bf16 and fp32 K2 kernels compute from the blocks they are
+    handed: x@b0 + hx@b1 + R(x@b2 + hx@b3), hx = hm @ x per image row."""
+    b0, b1, b2, b3 = blocks.to(x.dtype)
+    hm = hilbert_row_matrix(x.shape[2]).to(x.dtype)
+    hx = torch.einsum("dv,nhvc->nhdc", hm, x)
+    return x @ b0 + hx @ b1 + double_reversal(x @ b2 + hx @ b3)
+
+
+def test_added_blocks_give_the_forward_and_x_bar():
+    """The kernel adds every block it is handed: (A1, −A2, B1, B2) is the
+    forward, (A1ᵀ, A2ᵀ, B1ᵀ, B2ᵀ) the input gradient, both in float64
+    against the plain forms."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 6, 5, 8, generator=gen, dtype=torch.float64)
+    w = torch.randn(16, 16, generator=gen, dtype=torch.float64)
+    fwd = _added_plain(x, k2._added_blocks(w, 8).double())
+    torch.testing.assert_close(fwd, sfconv_freq_spatial(x, w), rtol=0, atol=1e-5)
+    xbar = _added_plain(x, k2._added_blocks(w, 8, transposed=True).double())
+    ref = sfconv_freq_blocks(x, *k2._transposed_blocks(w, 8))
+    torch.testing.assert_close(xbar, ref, rtol=0, atol=1e-5)
+

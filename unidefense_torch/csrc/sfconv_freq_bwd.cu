@@ -15,16 +15,19 @@
 // A2 block not negated; the wrapper (ops/sfconv_cuda.py) negates it and
 // repacks the blocks into the (2C, 2C) kernel gradient. R is an index map at
 // load time, not a copy. x_bar, the other half of the TPU kernel, is K2's
-// forward on g with the blocks (A1^T, -A2^T, B1^T, B2^T), launched by the
-// wrapper through sfconv_freq_fwd.cu.
+// forward on g with the blocks (A1^T, A2^T, B1^T, B2^T), every one added,
+// launched by the wrapper through sfconv_freq_fwd.cu.
 //
 // Bound on an H100: operations. The sums need 8*P*C^2 flops plus 2*P*W*C for
 // the Hilbert pass, against (2 inputs + hx) * P*C elements, e.g. 95x95/C192 at
 // batch 20 is 53 GFLOP for ~0.2 GB. K is long (up to 180,500) and the output
-// small (36 tiles of 64 x 64 at C = 192), so K is split across blocks with a
-// fixed-order reduction: the split-K product of weight_sums.cuh, shared with
-// K3-bwd and K4-bwd, with the bf16 path on the tensor cores (WMMA) and the
-// fp32 path on the CUDA cores.
+// small (4C x C), so K is split across blocks with a fixed-order reduction:
+// the split-K product of weight_sums.cuh, shared with K3-bwd and K4-bwd. Its
+// bf16 path runs 128 x 128 tiles of two sections at once on wgmma from a
+// 4-stage cp.async ring (sections 0-1 read x and hx, 2-3 the same at the
+// mirror pixel, all against one staged g); its fp32 path runs on the CUDA
+// cores. The Hilbert pass runs on the tensor cores for bf16
+// (hilbert_rows.cuh).
 //
 // hx is formed by the Hilbert pass into a scratch tensor the wrapper
 // allocates: one (N, H, W, C) tensor in the compute type per call, freed when
@@ -57,11 +60,11 @@ int launch(const void* x, const void* g, const void* hm, void* hx, void* workspa
 // x, g: (N, H, W, C) float32 (bf16 = 0) or bfloat16 (bf16 = 1), contiguous,
 // 16-byte aligned; hm: (W, W) in the same type; hx: an (N, H, W, C) scratch
 // tensor in the same type. out: (4C, C) float32, the sums [x | hx | R(x) |
-// R(hx)]^T g in four row blocks. The pixel rows are split into `splits`
-// ranges; with splits > 1, workspace holds (splits, 4C, C) float32 partial
-// sums. Needs 1 <= W <= 128, and C % 8 == 0 for bfloat16. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments outside these
-// limits.
+// R(hx)]^T g in four row blocks. The N*H image rows are split into `splits`
+// ranges of whole rows (splits <= N*H); with splits > 1, workspace holds
+// (splits, 4C, C) float32 partial sums. Needs 1 <= W <= 128, and C % 8 == 0
+// for bfloat16. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments outside these limits.
 extern "C" int ud_sfconv_freq_bwd_dw(const void* x, const void* g, const void* hm, void* hx,
                                      void* workspace, void* out, int n, int h, int w, int c,
                                      int splits, int bf16, void* stream) {

@@ -13,6 +13,7 @@ backward (:func:`sfconv_freq_bwd`) launches K2 on the gradient for x̄ and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -22,9 +23,103 @@ from unidefense_torch.ops.sfconv_spatial import (
     double_reversal, hilbert_row_matrix, sfconv_freq_blocks, sfconv_freq_spatial, split_blocks)
 
 MAX_WIDTH = 128  # the kernels keep up to 128 pixel rows (K2) or hm (both) in shared memory
-_DW_TILE = 64  # output tile of the weight-sum kernel, in channels
-_DW_BLOCKS = 2048  # blocks the weight-sum kernel aims for when it splits the pixel rows
-_DW_MIN_ROWS = 512  # fewest pixel rows per split
+SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
+GRID_YZ_LIMIT = 65_535  # largest y and z grid dimension
+_MIX_ROWS = 128  # pixel rows of a K2 mix tile: two consumer warpgroups of 64
+_PANEL = 64 * 128  # bytes of a 64-row x 64-column bf16 panel (rows of 128 bytes)
+_SUM_TILE = 128  # A channels and G channels of a sums tile
+_SUM_BK = 64  # pixel rows per sums ring stage
+_SUM_STAGES = 4
+_SUM_TARGET_BLOCKS = 2 * 132  # sums blocks to aim for: two waves of one block per SM
+_SUM_MIN_PIXELS = 1024  # fewest pixel rows per split
+_SUM_MAX_WORKSPACE = 64 * 2**20  # bytes of fp32 partial sums at most
+
+
+@dataclasses.dataclass(frozen=True)
+class MixGeometry:
+    """Launch geometry of K2's bf16 channel mix (``sfconv_mix_wgmma_kernel``,
+    384 threads: two consumer warpgroups and a producer warpgroup)."""
+
+    bn: int  # output channels per tile (64 or 128)
+    stages: int  # ring depth
+    rows: int  # R, image rows per tile (R * W <= 128), from the flattened (n, h) rows
+    groups: int  # row groups, ceil(N * H / R)
+    smem: int  # dynamic shared memory bytes
+    grid: tuple  # (x, y, z)
+
+
+def mix_geometry(n: int, h: int, w: int, c: int) -> MixGeometry:
+    """The tiles of K2's bf16 mix for an (n, h, w, c) input: 128 output
+    channels, or 64 where 128 would pad more than a fifth of C (C = 192);
+    as many whole image rows as fit 128 pixel rows. Raises ValueError if the
+    row groups exceed the grid."""
+    bn = 64 if (-c % 128) * 5 > c else 128
+    stages = 3 if bn == 128 else 4
+    stage = 2 * _MIX_ROWS * 128 + 2 * (bn // 64) * _PANEL
+    rows = _MIX_ROWS // w
+    groups = -(-(n * h) // rows)
+    if groups > GRID_YZ_LIMIT:
+        raise ValueError(f"sfconv_freq: {n * h} image rows of width {w} need {groups} row groups, "
+                         f"more than the grid's {GRID_YZ_LIMIT}")
+    return MixGeometry(bn=bn, stages=stages, rows=rows, groups=groups,
+                       smem=stages * stage + 1024 + 16 * stages + 2 * _MIX_ROWS * 4,
+                       grid=(-(-c // bn), groups, 1))
+
+
+def mix_tile_pixels(n: int, h: int, w: int, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(core, mirror): for every row group of the mix and each of its 128
+    tile rows, the flat pixel index (n*H + h)*W + w that the producer loads
+    for the core operand and for the mirror operand, or -1 where it
+    zero-fills. The mirror pixel of (n, h, w) is (n, (-h) mod H, (-w) mod W),
+    so gathering x at ``mirror`` gives double_reversal(x) at ``core``."""
+    groups = -(-(n * h) // rows)
+    t = torch.arange(_MIX_ROWS)
+    ir = torch.arange(groups)[:, None] * rows + t // w
+    wi = t % w
+    valid = (t < rows * w) & (ir < n * h)
+    ni, hi = ir // h, ir % h
+    core = ir * w + wi
+    mirror = (ni * h + (-hi) % h) * w + (-wi) % w
+    return torch.where(valid, core, -1), torch.where(valid, mirror, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SumsGeometry:
+    """Launch geometry of the bf16 weight sums (``dw_wgmma_kernel``) of
+    K2-bwd, K3-bwd and K4-bwd, 384 threads; the fp32 sums take the same
+    splits."""
+
+    tiles: int  # 128-channel tiles along each side of a C x C section
+    splits: int  # ranges of whole image rows summed separately
+    rows_per_split: int  # image rows per split (the last may hold fewer)
+    workspace: int  # bytes of fp32 partial sums, 0 when splits == 1
+    smem: int
+    grid: tuple  # (G tiles, 2 section pairs x A tiles, splits)
+
+    def ranges(self, img_rows: int) -> list[tuple[int, int]]:
+        """[begin, end) image rows of every split, in order."""
+        r = self.rows_per_split
+        return [(z * r, min((z + 1) * r, img_rows)) for z in range(self.splits)]
+
+
+def sums_geometry(n: int, h: int, w: int, c: int) -> SumsGeometry:
+    """Tiles and splits of the weight sums for an (n, h, w, c) input: enough
+    splits for about two waves of blocks, each split at least 1024 pixel rows
+    and whole image rows, the workspace at most 64 MiB, no split empty."""
+    tiles = -(-c // _SUM_TILE)
+    img_rows = n * h
+    per_split = 4 * c * c * 4
+    splits = min(-(-_SUM_TARGET_BLOCKS // (2 * tiles * tiles)),
+                 max(1, _SUM_MAX_WORKSPACE // per_split),
+                 img_rows * w // _SUM_MIN_PIXELS, img_rows, GRID_YZ_LIMIT)
+    splits = max(1, splits)
+    rows_per_split = -(-img_rows // splits)
+    splits = -(-img_rows // rows_per_split)
+    return SumsGeometry(tiles=tiles, splits=splits, rows_per_split=rows_per_split,
+                        workspace=splits * per_split if splits > 1 else 0,
+                        smem=_SUM_STAGES * 3 * 2 * _PANEL + 1024 + 16 * _SUM_STAGES
+                        + 4 * _SUM_BK * 4,
+                        grid=(tiles, 2 * tiles, splits))
 
 
 @functools.lru_cache(maxsize=None)  # one small matrix per (width, dtype, device)
@@ -46,39 +141,65 @@ def _check_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} kernel needs C % 8 == 0 for bfloat16, got C={c}")
 
 
-def _launch_blocks(x: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """K2 with the four (C, C) blocks given directly, stacked as (4, C, C)."""
+def _launch(x: torch.Tensor, w_packed: torch.Tensor, transposed: bool = False,
+            part: str = "both", hx: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 on x with the blocks of the packed (2C, 2C) kernel: the forward, or
+    with ``transposed`` x̄'s form (the forward's on g with (A1ᵀ, −A2ᵀ, B1ᵀ,
+    B2ᵀ)). Three kernels: the block split (:func:`_split_blocks`), the
+    Hilbert pass and the channel mix. For timing the last two apart (bf16
+    only), part "hilbert" runs the Hilbert pass alone and returns hx, and
+    part "mix" runs the mix alone on a given hx."""
     _check_input(x, "sfconv_freq")
     n, h, w, c = x.shape
-    if tuple(blocks.shape) != (4, c, c) or blocks.device != x.device:
-        raise ValueError(f"blocks must be (4, C, C) = {(4, c, c)} on {x.device}")
-    bf16 = x.dtype == torch.bfloat16
-    blocks = blocks.to(x.dtype).contiguous()
-    hm = _device_hilbert(w, x.dtype, x.device)
-    out = torch.empty_like(x)
-    scratch = torch.empty_like(x) if bf16 else None  # Hilbert products of the bf16 path
-    fn = _build.function("sfconv_freq_fwd", "ud_sfconv_freq_fwd", 5, 5)
-    err = fn(x.data_ptr(), blocks.data_ptr(), hm.data_ptr(), out.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), n, h, w, c, int(bf16),
-             _build.stream_ptr(x))
-    _build.check(err, "sfconv_freq_fwd")
-    sfconv_freq.launches += 1
-    return out
-
-
-def _launch(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
-    c = x.shape[-1]
     if tuple(w_packed.shape) != (2 * c, 2 * c) or w_packed.device != x.device:
         raise ValueError(f"w_packed must be (2C, 2C) = {(2 * c, 2 * c)} on {x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    parts = {"hilbert": 1, "mix": 2, "both": 3}[part]
+    if parts != 3 and not bf16:
+        raise ValueError("sfconv_freq: only the bfloat16 path runs its kernels apart")
+    geo = mix_geometry(n, h, w, c) if bf16 else None
+    if hx is not None:
+        _check_operands("sfconv_freq", x, hx)
+    elif bf16:
+        hx = torch.empty_like(x)  # Hilbert products of the bf16 path
     # blocks split in fp32, then cast to the compute dtype (as the TPU kernel)
-    return _launch_blocks(x, torch.stack(split_blocks(w_packed, c)))
+    blocks = _split_blocks(w_packed, c, x.dtype, transposed)
+    hm = _device_hilbert(w, x.dtype, x.device)
+    out = torch.empty_like(x) if part != "hilbert" else None
+    fn = _build.function("sfconv_freq_fwd", "ud_sfconv_freq_fwd", 5, 8)
+    err = fn(x.data_ptr(), blocks.data_ptr(), hm.data_ptr(), None if out is None else out.data_ptr(),
+             None if hx is None else hx.data_ptr(), n, h, w, c, int(bf16),
+             geo.bn if geo else 0, geo.rows if geo else 0, parts, _build.stream_ptr(x))
+    _build.check(err, "sfconv_freq_fwd")
+    sfconv_freq.launches += 1
+    return hx if part == "hilbert" else out
 
 
-def _dw_splits(pixels: int, c: int) -> int:
-    """How many pixel-row ranges the weight-sum kernel sums separately."""
-    t = -(-c // _DW_TILE)
-    tiles = 4 * t * t
-    return max(1, min(-(-_DW_BLOCKS // tiles), -(-pixels // _DW_MIN_ROWS)))
+def _split_blocks(w_packed: torch.Tensor, c: int, dtype: torch.dtype,
+                  transposed: bool = False) -> torch.Tensor:
+    """The (4, C, C) blocks K2 adds, contiguous in ``dtype``, split from the
+    packed kernel on the card in one launch (``ud_sfconv_split_blocks``):
+    the same values as :func:`_added_blocks`, rounded once to ``dtype``."""
+    w = w_packed.float()
+    blocks = torch.empty(4, c, c, dtype=dtype, device=w.device)
+    fn = _build.function("sfconv_freq_fwd", "ud_sfconv_split_blocks", 2, 5)
+    _build.check(fn(w.data_ptr(), blocks.data_ptr(), c, w.stride(0), w.stride(1),
+                    int(transposed), int(dtype == torch.bfloat16), _build.stream_ptr(w)),
+                 "sfconv_split_blocks")
+    return blocks
+
+
+def _added_blocks(w_packed: torch.Tensor, c: int, transposed: bool = False) -> torch.Tensor:
+    """Plain version of :func:`_split_blocks`: the (4, C, C) fp32 blocks K2
+    adds, split as ``split_blocks`` splits them (same rounding): (A1, −A2,
+    B1, B2) for the forward, (A1ᵀ, A2ᵀ, B1ᵀ, B2ᵀ) for x̄ (the forward's form
+    on g with (A1ᵀ, −A2ᵀ, B1ᵀ, B2ᵀ), its second block negated once more). A
+    transposed result is a view."""
+    w = w_packed.float()
+    wrr, wri, wir, wii = w[:c, :c], w[:c, c:], w[c:, :c], w[c:, c:]
+    if transposed:
+        return torch.stack([wrr + wii, wri - wir, wrr - wii, wri + wir]).mul_(0.5).transpose(1, 2)
+    return torch.stack([wrr + wii, wir - wri, wrr - wii, wri + wir]).mul_(0.5)
 
 
 def _check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
@@ -98,7 +219,7 @@ def _sums_scratch(x: torch.Tensor):
     """(splits, the (4C, C) fp32 sums, the (splits, 4C, C) fp32 workspace or
     None) of one weight-sum launch on x."""
     n, h, w, c = x.shape
-    splits = _dw_splits(n * h * w, c)
+    splits = sums_geometry(n, h, w, c).splits
     out = torch.empty(4 * c, c, dtype=torch.float32, device=x.device)
     ws = torch.empty(splits, 4 * c, c, dtype=torch.float32, device=x.device) if splits > 1 else None
     return splits, out, ws
@@ -161,7 +282,7 @@ def sfconv_freq_bwd(x: torch.Tensor, g: torch.Tensor, w_packed: torch.Tensor):
     if not _build.uses_kernel(x):
         return sfconv_freq_bwd_plain(x, g, w_packed)
     c = x.shape[-1]
-    x_bar = _launch_blocks(g, _transposed_blocks(w_packed, c))
+    x_bar = _launch(g, w_packed, transposed=True)
     return x_bar, _repack(_launch_dw(x, g), c, w_packed.dtype)
 
 
