@@ -9,10 +9,11 @@ Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
 K2 on the gradient for x_bar), K3 (sfconv_freq_v4, split output), K3-bwd,
 K4 (sfconv_freq_v3, over a materialised double reversal) and K4-bwd
 against their plain PyTorch versions on the card at the shapes the serving
-and training paths and the per-op A/B tool give them, timing each (K2 also
-as its Hilbert pass and its mix apart, K2 and K2-bwd beside a cuBLAS
-product of the same shape as a yardstick), and checking that two runs of
-each bf16 weight-sum kernel agree bit for bit; serve UDEB4 at 380x380,
+and training paths and the per-op A/B tool give them, timing each (K2, K3
+and K4 also as their Hilbert pass and their mix apart; every SFConv kernel
+but K3-bwd and K4-bwd beside a cuBLAS product of the same shape as a
+yardstick), checking the block split bit for bit, and checking that two
+runs of each bf16 weight-sum kernel agree bit for bit; serve UDEB4 at 380x380,
 batch 32, bf16 through ``Predictor`` with seeded random weights and check
 that every batch went through K1 and K2; compare the card's fp32 and bf16
 Predictor with the CPU Predictor; train UDEB4 at 380x380, 10 real + 10
@@ -168,26 +169,38 @@ def sfconv_check_shapes() -> list[tuple[int, int, str]]:
     return [(hw, c, origin) for (hw, c), origin in shapes.items()]
 
 
-def _k2_operand(x):
-    """[x | hx | R(x) | R(hx)] as one (P, 4C) matrix, hx = hm @ x per image
-    row: K2's two products as one, for the cuBLAS yardstick."""
+def _mix_operand(x, mirrored: bool = True):
+    """[x | hx], or with ``mirrored`` [x | hx | R(x) | R(hx)], as one (P, 2C)
+    or (P, 4C) matrix, hx = hm @ x per image row: a mix's products as one,
+    for the cuBLAS yardsticks."""
     import torch
 
     from unidefense_torch.ops.sfconv_spatial import double_reversal, hilbert_row_matrix
 
     hm = hilbert_row_matrix(x.shape[2]).to(device=x.device, dtype=x.dtype)
     hx = torch.einsum("dv,nhvc->nhdc", hm, x)
-    a = torch.cat([x, hx, double_reversal(x), double_reversal(hx)], dim=-1)
-    return a.reshape(-1, 4 * x.shape[-1]).contiguous()
+    parts = [x, hx, double_reversal(x), double_reversal(hx)] if mirrored else [x, hx]
+    return torch.cat(parts, dim=-1).reshape(-1, len(parts) * x.shape[-1]).contiguous()
 
 
 def k2_gemm(x, w):
     """cuBLAS yardstick of K2, never called by the port: (P, 4C) @ (4C, C) in
-    x's dtype, the operand materialised beforehand."""
+    x's dtype, the operand materialised beforehand. K4's yardstick too: its
+    [x | hx | rx | hr] @ (4C, C) has the same shape."""
     import torch
 
-    a = _k2_operand(x)
+    a = _mix_operand(x)
     b = torch.randn(a.shape[1], x.shape[-1], device=x.device).to(x.dtype)
+    return lambda: torch.matmul(a, b)
+
+
+def k3_gemm(x, w):
+    """cuBLAS yardstick of K3: [x | hx] (P, 2C) @ (2C, 2C), o1 and o2 side by
+    side."""
+    import torch
+
+    a = _mix_operand(x, mirrored=False)
+    b = torch.randn(a.shape[1], a.shape[1], device=x.device).to(x.dtype)
     return lambda: torch.matmul(a, b)
 
 
@@ -195,7 +208,7 @@ def k2_bwd_gemm(x, g):
     """cuBLAS yardstick of K2-bwd's sums: A^T g with A = [x | hx | R(x) | R(hx)]."""
     import torch
 
-    a, gm = _k2_operand(x), g.reshape(-1, g.shape[-1])
+    a, gm = _mix_operand(x), g.reshape(-1, g.shape[-1])
     return lambda: torch.matmul(a.t(), gm)
 
 
@@ -210,9 +223,34 @@ def k2_parts(x, w):
     return partial(k2._launch, x, w, part="hilbert"), partial(k2._launch, x, w, part="mix", hx=hx)
 
 
-def k2_split_check(x, w):
-    """K2's block split on the card against its plain version, bit for bit,
-    for the forward and for x_bar, from a row-major kernel and from a
+def k3_parts(x, w):
+    """K3's Hilbert pass and its mix apart, as :func:`k2_parts`."""
+    from functools import partial
+
+    from unidefense_torch.ops import sfconv_rowtiled as rt
+
+    hx = rt._launch_v4(x, w, part="hilbert")
+    return (partial(rt._launch_v4, x, w, part="hilbert"),
+            partial(rt._launch_v4, x, w, part="mix", hx=hx))
+
+
+def k4_parts(x, w):
+    """K4's two Hilbert passes and its mix apart, on a materialised R(x)."""
+    from functools import partial
+
+    from unidefense_torch.ops import sfconv_rowtiled as rt
+    from unidefense_torch.ops.sfconv_spatial import double_reversal
+
+    rx = double_reversal(x).contiguous()
+    hxr = rt._launch_v3(x, rx, w, part="hilbert")
+    return (partial(rt._launch_v3, x, rx, w, part="hilbert"),
+            partial(rt._launch_v3, x, rx, w, part="mix", hxr=hxr))
+
+
+def split_check(x, w):
+    """The block split on the card against its plain version, bit for bit:
+    the forward's and x_bar's blocks, with the fourth block as K2 and K3 take
+    it and negated as K4 takes it, from a row-major kernel and from a
     column-major view (as the model passes its weight)."""
     import torch
 
@@ -221,11 +259,13 @@ def k2_split_check(x, w):
     c = x.shape[-1]
     for wv in (w, w.t().contiguous().t()):
         for transposed in (False, True):
-            for dt in (torch.bfloat16, torch.float32):
-                got = k2._split_blocks(wv, c, dt, transposed)
-                if not torch.equal(got, k2._added_blocks(wv, c, transposed).to(dt)):
-                    raise AssertionError(f"K2 block split C{c} {dt} transposed={transposed} "
-                                         f"strides {wv.stride()} differs from its plain version")
+            for neg in (False, True):
+                for dt in (torch.bfloat16, torch.float32):
+                    got = k2._split_blocks(wv, c, dt, transposed, neg)
+                    if not torch.equal(got, k2._added_blocks(wv, c, transposed, neg).to(dt)):
+                        raise AssertionError(
+                            f"block split C{c} {dt} transposed={transposed} negate_last={neg} "
+                            f"strides {wv.stride()} differs from its plain version")
 
 
 def sfconv_kernels() -> list[dict]:
@@ -256,14 +296,14 @@ def sfconv_kernels() -> list[dict]:
     return [
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
              hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32",
-             parts=k2_parts, gemm=k2_gemm, check=k2_split_check),
+             parts=k2_parts, gemm=k2_gemm, check=split_check),
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
              seed=SEED + 4, hilberts=1, streams=2, counts=fwd,
              sums=lambda x, g: partial(k2._launch_dw, x, g),
              sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g), gemm=k2_bwd_gemm,
              workload="per UDEB4 backward at 380^2 b20"),
         dict(name="K3", fn=rt.sfconv_freq_v4, plain=rt.sfconv_freq_v4_plain, batch=32,
-             seed=SEED + 10, hilberts=1, streams=3, counts=v4,
+             seed=SEED + 10, hilberts=1, streams=3, counts=v4, parts=k3_parts, gemm=k3_gemm,
              workload=f"per UDEB4 forward at 380^2 b32 {route}"),
         dict(name="K3-bwd", fn=rt.sfconv_freq_v4_bwd, plain=rt.sfconv_freq_v4_bwd_plain,
              batch=20, seed=SEED + 11, hilberts=1, streams=2, counts=v4,
@@ -271,7 +311,8 @@ def sfconv_kernels() -> list[dict]:
              sums_plain=lambda x, g: partial(rt.v4_weight_sums_plain, x, g),
              workload=f"per UDEB4 backward at 380^2 b20 {route}"),
         dict(name="K4", fn=rt.sfconv_freq_v3, plain=rt.sfconv_freq_v3_plain, batch=20,
-             seed=SEED + 12, hilberts=2, streams=3, counts={k: 2 for k in ab}, workload=ab_pass),
+             seed=SEED + 12, hilberts=2, streams=3, counts={k: 2 for k in ab}, parts=k4_parts,
+             gemm=k2_gemm, workload=ab_pass),
         dict(name="K4-bwd", fn=rt.sfconv_freq_v3_bwd, plain=rt.sfconv_freq_v3_bwd_plain,
              batch=20, seed=SEED + 13, hilberts=2, streams=3, counts={k: 1 for k in ab},
              sums=with_rx(rt._launch_v3_dw), sums_plain=with_rx(rt.v3_weight_sums_plain),

@@ -157,9 +157,10 @@ def test_k2_bwd_rejects_what_it_cannot_take(monkeypatch):
 
 
 @pytest.mark.parametrize("launch,nstreams", [
-    (lambda x: sfconv_rowtiled._launch_v4(x, torch.zeros(4, x.shape[-1], x.shape[-1])), 1),
+    (lambda x: sfconv_rowtiled._launch_v4(x, torch.zeros(2 * x.shape[-1], 2 * x.shape[-1])), 1),
     (sfconv_rowtiled._launch_v4_dw, 2),
-    (lambda x, rx: sfconv_rowtiled._launch_v3(x, rx, torch.zeros(4, x.shape[-1], x.shape[-1])), 2),
+    (lambda x, rx: sfconv_rowtiled._launch_v3(x, rx, torch.zeros(2 * x.shape[-1],
+                                                                 2 * x.shape[-1])), 2),
     (sfconv_rowtiled._launch_v3_dw, 3),
 ], ids=["K3", "K3-bwd", "K4", "K4-bwd"])
 @pytest.mark.parametrize("shape,dtype,match", [
@@ -174,6 +175,23 @@ def test_rowtiled_kernels_reject_what_they_cannot_take(monkeypatch, launch, nstr
     before = _launches()
     with pytest.raises(ValueError, match=match):
         launch(*(torch.randn(shape).to(dtype) for _ in range(nstreams)))
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("launch,nstreams", [
+    (lambda x: sfconv_rowtiled._launch_v4(x, torch.zeros(16, 16, dtype=x.dtype)), 1),
+    (lambda x, rx: sfconv_rowtiled._launch_v3(x, rx, torch.zeros(16, 16, dtype=x.dtype)), 2),
+    (lambda x, g: sfconv_rowtiled.sfconv_freq_v4_bwd(x, g, torch.zeros(16, 16)), 2),
+    (lambda x, g: sfconv_rowtiled.sfconv_freq_v3_bwd(x, g, torch.zeros(16, 16)), 2),
+], ids=["K3", "K4", "K3-x-bar", "K4-x-bar"])
+def test_rowtiled_mix_refuses_more_row_groups_than_its_grid(monkeypatch, launch, nstreams):
+    """K3's and K4's bf16 mix, forward and x̄, refuse an input with more row
+    groups than the grid takes, before a build or a launch."""
+    monkeypatch.setattr(_build, "uses_kernel", lambda t: True)
+    before = _launches()
+    x = _too_many_row_groups()
+    with pytest.raises(ValueError, match="row groups"):
+        launch(*(x for _ in range(nstreams)))
     assert _launches() == before
 
 

@@ -1,5 +1,5 @@
-// Hopper building blocks shared by the wgmma kernels (sfconv_freq_fwd.cu's
-// channel mix, weight_sums.cuh's sums): shared-memory addresses, mbarriers,
+// Hopper building blocks shared by the wgmma kernels (wgmma_mix.cuh's
+// channel mix of K2, K3 and K4, weight_sums.cuh's sums): shared-memory addresses, mbarriers,
 // 16-byte cp.async copies that complete on an mbarrier, the 128-byte
 // swizzled tile layout and its wgmma matrix descriptors, wgmma itself, and
 // setmaxnreg. All of it is inline PTX for sm_90a; no library is involved.

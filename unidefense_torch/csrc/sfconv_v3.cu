@@ -12,10 +12,12 @@
 // x and rx read as two aligned streams, the Hilbert products of both formed
 // per image row and rounded to the compute type T (hilbert_rows.cuh), the
 // four products accumulated in fp32 and rounded once (rowtiled_mix.cuh,
-// K = 4C per output channel).
+// K = 4C per output channel). The kernel adds every block it is given (the
+// blocks come signed from ops/sfconv_cuda._split_blocks): (A1, -A2, B1, -B2)
+// for the forward.
 //
 // Backward: x_bar is this same forward on (g, R(g)) with the blocks
-// (A1^T, -A2^T, B1^T, B2^T), launched by the wrapper
+// (A1^T, A2^T, B1^T, -B2^T), launched by the wrapper
 // (ops/sfconv_rowtiled.py). ud_sfconv_v3_bwd_dw is the rest of K4-bwd, the
 // four C x C fp32 sums over aligned streams (weight_sums.cuh):
 //
@@ -26,8 +28,14 @@
 // Bound on an H100: operations. Per image row the forward needs
 // 8*W*C^2 + 4*W^2*C flops against reading x and rx and writing out, e.g.
 // 48x48/C336 at batch 20 is 45 GFLOP for ~93 MB, above the ~295 flop/byte
-// ridge. The mix tiles 64 output channels and streams 32-channel chunks of
-// the four blocks; wgmma, TMA and pipelining are later work.
+// ridge. The blocks are streamed, so the tensor cores are fed only as fast as
+// each staged byte is reused. The bf16 forward is three kernels: the Hilbert
+// pass over x and over rx, then the mix on wgmma in the pair mode of
+// wgmma_mix.cuh (rowtiled_mix.cuh): tiles of 128 pixel rows of the flattened
+// (n, h) rows by 128 output channels (64 at C = 192), a 3-stage cp.async ring
+// (4 at C = 192) of 64 KB stages (A tiles [x | hx] and [rx | hr], both at the
+// core pixel, and the B tiles [b0; b1] and [b2; b3]), both products in one
+// fp32 accumulator, rounded once in the epilogue from the fragments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,19 +56,35 @@ cudaError_t hilbert_both(const void* x, const void* rx, const void* hm, void* hx
   return launch_hilbert_rows(static_cast<const T*>(rx), hmt, static_cast<T*>(hr), N * H, W, C, s);
 }
 
-template <typename T>
-int forward(const void* x, const void* rx, const void* blocks, const void* hm, void* out,
-            void* hx, void* hr, int N, int H, int W, int C, cudaStream_t s) {
-  cudaError_t e = hilbert_both<T>(x, rx, hm, hx, hr, N, H, W, C, s);
+// parts: 1 the Hilbert passes alone, 2 the mix alone (on the hx and hr
+// given), 3 both (K4).
+int forward_bf16(const void* x, const void* rx, const void* blocks, const void* hm, void* out,
+                 void* hx, void* hr, int N, int H, int W, int C, int bn, int R, int parts,
+                 cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  if (parts & 1) {
+    cudaError_t e = hilbert_both<bf>(x, rx, hm, hx, hr, N, H, W, C, s);
+    if (e != cudaSuccess || !(parts & 2)) return (int)e;
+  }
+  // out = [x | hx] @ [b0; b1] + [rx | hr] @ [b2; b3]
+  const WgmmaMix a{{{static_cast<const bf*>(x), static_cast<const bf*>(hx)},
+                    {static_cast<const bf*>(rx), static_cast<const bf*>(hr)}},
+                   static_cast<const bf*>(blocks), {static_cast<bf*>(out), nullptr}, H, W, C, R,
+                   N * H};
+  return launch_rowtiled_wgmma<kMixPair>(a, bn, s);
+}
+
+int forward_fp32(const void* x, const void* rx, const void* blocks, const void* hm, void* out,
+                 void* hx, void* hr, int N, int H, int W, int C, cudaStream_t s) {
+  cudaError_t e = hilbert_both<float>(x, rx, hm, hx, hr, N, H, W, C, s);
   if (e != cudaSuccess) return (int)e;
-  // out = x@A1 - hx@A2 + rx@B1 - hr@B2
-  const MixOperands<T> ops{{static_cast<const T*>(x), static_cast<const T*>(hx),
-                            static_cast<const T*>(rx), static_cast<const T*>(hr)},
-                           {static_cast<T*>(out), nullptr},
-                           {{0, 1, 2, 3}, {0, 0, 0, 0}},
-                           0xAu,
-                           0u};
-  return launch_mix<4, 1>(ops, static_cast<const T*>(blocks), N, H, W, C, s);
+  // out = x@b0 + hx@b1 + rx@b2 + hr@b3
+  const MixOperands<float> ops{{static_cast<const float*>(x), static_cast<const float*>(hx),
+                                static_cast<const float*>(rx), static_cast<const float*>(hr)},
+                               {static_cast<float*>(out), nullptr},
+                               {{0, 1, 2, 3}, {0, 0, 0, 0}},
+                               0u};
+  return launch_fma_mix<4, 1>(ops, static_cast<const float*>(blocks), N, H, W, C, s);
 }
 
 template <typename T>
@@ -80,19 +104,23 @@ int sums(const void* x, const void* rx, const void* g, const void* hm, void* hx,
 
 }  // namespace
 
-// K4. x, rx: (N, H, W, C), rx = R(x); blocks: (4, C, C) = A1, A2, B1, B2,
-// rows = input channels; hm: (W, W); out: (N, H, W, C); hx, hr: two
-// (N, H, W, C) scratch tensors. All float32 (bf16 = 0) or bfloat16
-// (bf16 = 1), contiguous, 16-byte aligned. Needs 1 <= W <= 128, and
-// C % 8 == 0 for bfloat16. Returns cudaGetLastError(), or
+// K4. x, rx: (N, H, W, C), rx = R(x); blocks: (4, C, C), rows = input
+// channels, every one added: x's two, then rx's two; hm: (W, W); out:
+// (N, H, W, C); hx, hr: two (N, H, W, C) scratch tensors. All float32
+// (bf16 = 0) or bfloat16 (bf16 = 1), contiguous, 16-byte aligned. bn and rows
+// set the bfloat16 mix's tiles (ops/sfconv_cuda.mix_geometry; limits in
+// wgmma_mix_args_ok) and are unused for float32. parts (bfloat16 only; 3 for
+// float32) is 3 for K4, or 1 or 2 to run the Hilbert passes or the mix alone,
+// for timing. Needs 1 <= W <= 128. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments outside these limits.
 extern "C" int ud_sfconv_v3_fwd(const void* x, const void* rx, const void* blocks, const void* hm,
                                 void* out, void* hx, void* hr, int n, int h, int w, int c,
-                                int bf16, void* stream) {
-  if (!mix_args_ok(n, h, w, c, bf16)) return (int)cudaErrorInvalidValue;
+                                int bf16, int bn, int rows, int parts, void* stream) {
+  if (!mix_args_ok(n, h, w, c, bf16, bn, rows, parts)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return forward<__nv_bfloat16>(x, rx, blocks, hm, out, hx, hr, n, h, w, c, s);
-  return forward<float>(x, rx, blocks, hm, out, hx, hr, n, h, w, c, s);
+  if (bf16)
+    return forward_bf16(x, rx, blocks, hm, out, hx, hr, n, h, w, c, bn, rows, parts, s);
+  return forward_fp32(x, rx, blocks, hm, out, hx, hr, n, h, w, c, s);
 }
 
 // K4-bwd's sums. x, rx, g: (N, H, W, C) as for K4; hx, hr: scratch; out:

@@ -25,7 +25,8 @@ from unidefense_torch.ops.sfconv_spatial import (
 MAX_WIDTH = 128  # the kernels keep up to 128 pixel rows (K2) or hm (both) in shared memory
 SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
 GRID_YZ_LIMIT = 65_535  # largest y and z grid dimension
-_MIX_ROWS = 128  # pixel rows of a K2 mix tile: two consumer warpgroups of 64
+_MIX_ROWS = 128  # pixel rows of a mix tile: two consumer warpgroups of 64
+_MIX_MAX_STAGES = 4
 _PANEL = 64 * 128  # bytes of a 64-row x 64-column bf16 panel (rows of 128 bytes)
 _SUM_TILE = 128  # A channels and G channels of a sums tile
 _SUM_BK = 64  # pixel rows per sums ring stage
@@ -37,8 +38,10 @@ _SUM_MAX_WORKSPACE = 64 * 2**20  # bytes of fp32 partial sums at most
 
 @dataclasses.dataclass(frozen=True)
 class MixGeometry:
-    """Launch geometry of K2's bf16 channel mix (``sfconv_mix_wgmma_kernel``,
-    384 threads: two consumer warpgroups and a producer warpgroup)."""
+    """Launch geometry of the bf16 channel mix on wgmma (``csrc/wgmma_mix.cuh``,
+    384 threads: two consumer warpgroups and a producer warpgroup), shared by
+    K2 (two A tiles a stage: the core and the mirror pixel), K3 (one) and K4
+    (two: [x | hx] and [rx | hr])."""
 
     bn: int  # output channels per tile (64 or 128)
     stages: int  # ring depth
@@ -48,30 +51,35 @@ class MixGeometry:
     grid: tuple  # (x, y, z)
 
 
-def mix_geometry(n: int, h: int, w: int, c: int) -> MixGeometry:
-    """The tiles of K2's bf16 mix for an (n, h, w, c) input: 128 output
-    channels, or 64 where 128 would pad more than a fifth of C (C = 192);
-    as many whole image rows as fit 128 pixel rows. Raises ValueError if the
-    row groups exceed the grid."""
+A_TILES = {"K2": 2, "K3": 1, "K4": 2}  # A tiles a ring stage holds, per kernel
+
+
+def mix_geometry(n: int, h: int, w: int, c: int, kernel: str = "K2") -> MixGeometry:
+    """The tiles of ``kernel``'s bf16 mix for an (n, h, w, c) input: 128
+    output channels, or 64 where 128 would pad more than a fifth of C (C =
+    192); as many whole image rows as fit 128 pixel rows; as many stages as
+    fit the shared memory, at most 4 (K2, K4: 3 at BN = 128, else 4). Raises
+    ValueError if the row groups exceed the grid."""
     bn = 64 if (-c % 128) * 5 > c else 128
-    stages = 3 if bn == 128 else 4
-    stage = 2 * _MIX_ROWS * 128 + 2 * (bn // 64) * _PANEL
+    stage = A_TILES[kernel] * _MIX_ROWS * 128 + 2 * (bn // 64) * _PANEL
+    extra = 1024 + 2 * _MIX_ROWS * 4  # alignment, the pixel table; + 16 bytes of barriers a stage
+    stages = min(_MIX_MAX_STAGES, (SMEM_LIMIT - extra) // (stage + 16))
     rows = _MIX_ROWS // w
     groups = -(-(n * h) // rows)
     if groups > GRID_YZ_LIMIT:
         raise ValueError(f"sfconv_freq: {n * h} image rows of width {w} need {groups} row groups, "
                          f"more than the grid's {GRID_YZ_LIMIT}")
     return MixGeometry(bn=bn, stages=stages, rows=rows, groups=groups,
-                       smem=stages * stage + 1024 + 16 * stages + 2 * _MIX_ROWS * 4,
-                       grid=(-(-c // bn), groups, 1))
+                       smem=stages * (stage + 16) + extra, grid=(-(-c // bn), groups, 1))
 
 
 def mix_tile_pixels(n: int, h: int, w: int, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(core, mirror): for every row group of the mix and each of its 128
-    tile rows, the flat pixel index (n*H + h)*W + w that the producer loads
-    for the core operand and for the mirror operand, or -1 where it
-    zero-fills. The mirror pixel of (n, h, w) is (n, (-h) mod H, (-w) mod W),
-    so gathering x at ``mirror`` gives double_reversal(x) at ``core``."""
+    tile rows, the flat pixel index (n*H + h)*W + w of its core pixel and of
+    its mirror pixel (n, (-h) mod H, (-w) mod W), or -1 where the producer
+    zero-fills and the epilogue stores nothing. K2 loads its second operand
+    at ``mirror``, so gathering x there gives double_reversal(x) at ``core``;
+    K3 stores o2 at ``mirror``, so what lands in memory is R(o2)."""
     groups = -(-(n * h) // rows)
     t = torch.arange(_MIX_ROWS)
     ir = torch.arange(groups)[:, None] * rows + t // w
@@ -141,6 +149,25 @@ def _check_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} kernel needs C % 8 == 0 for bfloat16, got C={c}")
 
 
+def _mix_args(what: str, x: torch.Tensor, w_packed: torch.Tensor, part: str,
+              kernel: str) -> tuple[int, int, int]:
+    """(bn, rows, parts) that the C entry of a mix (``kernel``: K2, K3 or K4)
+    takes for x and the packed (2C, 2C) kernel: the bf16 mix's tiles, or
+    zeros for float32, which runs only whole (parts 3). Raises ValueError
+    for a kernel of another shape or device, a part float32 cannot run, or
+    more row groups than the grid takes."""
+    n, h, w, c = x.shape
+    if tuple(w_packed.shape) != (2 * c, 2 * c) or w_packed.device != x.device:
+        raise ValueError(f"w_packed must be (2C, 2C) = {(2 * c, 2 * c)} on {x.device}")
+    parts = {"hilbert": 1, "mix": 2, "both": 3}[part]
+    if x.dtype != torch.bfloat16:
+        if parts != 3:
+            raise ValueError(f"{what}: only the bfloat16 path runs its kernels apart")
+        return 0, 0, parts
+    geo = mix_geometry(n, h, w, c, kernel)
+    return geo.bn, geo.rows, parts
+
+
 def _launch(x: torch.Tensor, w_packed: torch.Tensor, transposed: bool = False,
             part: str = "both", hx: torch.Tensor | None = None) -> torch.Tensor:
     """K2 on x with the blocks of the packed (2C, 2C) kernel: the forward, or
@@ -151,13 +178,8 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, transposed: bool = False,
     part "mix" runs the mix alone on a given hx."""
     _check_input(x, "sfconv_freq")
     n, h, w, c = x.shape
-    if tuple(w_packed.shape) != (2 * c, 2 * c) or w_packed.device != x.device:
-        raise ValueError(f"w_packed must be (2C, 2C) = {(2 * c, 2 * c)} on {x.device}")
+    bn, rows, parts = _mix_args("sfconv_freq", x, w_packed, part, "K2")
     bf16 = x.dtype == torch.bfloat16
-    parts = {"hilbert": 1, "mix": 2, "both": 3}[part]
-    if parts != 3 and not bf16:
-        raise ValueError("sfconv_freq: only the bfloat16 path runs its kernels apart")
-    geo = mix_geometry(n, h, w, c) if bf16 else None
     if hx is not None:
         _check_operands("sfconv_freq", x, hx)
     elif bf16:
@@ -168,38 +190,48 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, transposed: bool = False,
     out = torch.empty_like(x) if part != "hilbert" else None
     fn = _build.function("sfconv_freq_fwd", "ud_sfconv_freq_fwd", 5, 8)
     err = fn(x.data_ptr(), blocks.data_ptr(), hm.data_ptr(), None if out is None else out.data_ptr(),
-             None if hx is None else hx.data_ptr(), n, h, w, c, int(bf16),
-             geo.bn if geo else 0, geo.rows if geo else 0, parts, _build.stream_ptr(x))
+             None if hx is None else hx.data_ptr(), n, h, w, c, int(bf16), bn, rows, parts,
+             _build.stream_ptr(x))
     _build.check(err, "sfconv_freq_fwd")
     sfconv_freq.launches += 1
     return hx if part == "hilbert" else out
 
 
 def _split_blocks(w_packed: torch.Tensor, c: int, dtype: torch.dtype,
-                  transposed: bool = False) -> torch.Tensor:
-    """The (4, C, C) blocks K2 adds, contiguous in ``dtype``, split from the
-    packed kernel on the card in one launch (``ud_sfconv_split_blocks``):
-    the same values as :func:`_added_blocks`, rounded once to ``dtype``."""
+                  transposed: bool = False, negate_last: bool = False) -> torch.Tensor:
+    """The (4, C, C) blocks the SFConv kernels add, contiguous in ``dtype``,
+    split from the packed kernel on the card in one launch
+    (``ud_sfconv_split_blocks``): the same values as :func:`_added_blocks`,
+    rounded once to ``dtype``."""
     w = w_packed.float()
     blocks = torch.empty(4, c, c, dtype=dtype, device=w.device)
-    fn = _build.function("sfconv_freq_fwd", "ud_sfconv_split_blocks", 2, 5)
+    fn = _build.function("sfconv_freq_fwd", "ud_sfconv_split_blocks", 2, 6)
     _build.check(fn(w.data_ptr(), blocks.data_ptr(), c, w.stride(0), w.stride(1),
-                    int(transposed), int(dtype == torch.bfloat16), _build.stream_ptr(w)),
+                    int(transposed), int(negate_last), int(dtype == torch.bfloat16),
+                    _build.stream_ptr(w)),
                  "sfconv_split_blocks")
     return blocks
 
 
-def _added_blocks(w_packed: torch.Tensor, c: int, transposed: bool = False) -> torch.Tensor:
-    """Plain version of :func:`_split_blocks`: the (4, C, C) fp32 blocks K2
-    adds, split as ``split_blocks`` splits them (same rounding): (A1, −A2,
-    B1, B2) for the forward, (A1ᵀ, A2ᵀ, B1ᵀ, B2ᵀ) for x̄ (the forward's form
-    on g with (A1ᵀ, −A2ᵀ, B1ᵀ, B2ᵀ), its second block negated once more). A
-    transposed result is a view."""
+def _added_blocks(w_packed: torch.Tensor, c: int, transposed: bool = False,
+                  negate_last: bool = False) -> torch.Tensor:
+    """Plain version of :func:`_split_blocks`: the (4, C, C) fp32 blocks the
+    kernels add, split as ``split_blocks`` splits them (same rounding): (A1,
+    −A2, B1, B2) for the forward of K2 and K3, (A1ᵀ, A2ᵀ, B1ᵀ, B2ᵀ) for
+    their x̄ (the forward's form on g with (A1ᵀ, −A2ᵀ, B1ᵀ, B2ᵀ), its second
+    block negated once more); with ``negate_last`` the fourth block negated,
+    K4's (A1, −A2, B1, −B2) and (A1ᵀ, A2ᵀ, B1ᵀ, −B2ᵀ). A transposed result
+    is a view."""
     w = w_packed.float()
     wrr, wri, wir, wii = w[:c, :c], w[:c, c:], w[c:, :c], w[c:, c:]
+    last = -0.5 if negate_last else 0.5
     if transposed:
-        return torch.stack([wrr + wii, wri - wir, wrr - wii, wri + wir]).mul_(0.5).transpose(1, 2)
-    return torch.stack([wrr + wii, wir - wri, wrr - wii, wri + wir]).mul_(0.5)
+        blocks = torch.stack([wrr + wii, wri - wir, wrr - wii, wri + wir])
+    else:
+        blocks = torch.stack([wrr + wii, wir - wri, wrr - wii, wri + wir])
+    blocks[:3].mul_(0.5)
+    blocks[3].mul_(last)
+    return blocks.transpose(1, 2) if transposed else blocks
 
 
 def _check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:

@@ -33,7 +33,8 @@ import torch
 
 from unidefense_torch.ops import _build
 from unidefense_torch.ops.sfconv_cuda import (
-    _check_operands, _device_hilbert, _repack, _sums_scratch, _transposed_blocks)
+    _check_operands, _device_hilbert, _mix_args, _repack, _split_blocks, _sums_scratch,
+    _transposed_blocks)
 from unidefense_torch.ops.sfconv_spatial import double_reversal, hilbert_row_matrix, split_blocks
 
 V2_MIN_WIDTH = 80  # the JAX model's K2 gate, which takes precedence over the V4 route
@@ -142,26 +143,28 @@ def sfconv_freq_v3_bwd_plain(x: torch.Tensor, g: torch.Tensor, w_packed: torch.T
 
 # --------------------------------------------------------------- kernels
 
-def _check_blocks(x: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    c = x.shape[-1]
-    if tuple(blocks.shape) != (4, c, c) or blocks.device != x.device:
-        raise ValueError(f"blocks must be (4, C, C) = {(4, c, c)} on {x.device}")
-    return blocks.to(x.dtype).contiguous()
-
-
-def _launch_v4(x: torch.Tensor, blocks: torch.Tensor):
-    """K3: (o1, R(o2)) for x (N, H, W, C) and the (4, C, C) blocks."""
-    _check_operands("sfconv_freq_v4", x)
-    blocks = _check_blocks(x, blocks)
+def _launch_v4(x: torch.Tensor, w_packed: torch.Tensor, transposed: bool = False,
+               part: str = "both", hx: torch.Tensor | None = None):
+    """K3: (o1, R(o2)) for x (N, H, W, C) and the blocks of the packed (2C,
+    2C) kernel, every one added: the forward's (A1, −A2, B1, B2), or with
+    ``transposed`` x̄'s (A1ᵀ, A2ᵀ, B1ᵀ, B2ᵀ). Three kernels: the block split,
+    the Hilbert pass and the mix. For timing the last two apart (bf16 only),
+    part "hilbert" runs the Hilbert pass alone and returns hx, and part "mix"
+    runs the mix alone on a given hx."""
+    _check_operands("sfconv_freq_v4", x, *([] if hx is None else [hx]))
     n, h, w, c = x.shape
+    bn, rows, parts = _mix_args("sfconv_freq_v4", x, w_packed, part, "K3")
+    hx = torch.empty_like(x) if hx is None else hx
+    blocks = _split_blocks(w_packed, c, x.dtype, transposed)
     hm = _device_hilbert(w, x.dtype, x.device)
-    o1, o2r, hx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    fn = _build.function("sfconv_v4", "ud_sfconv_v4_fwd", 6, 5)
-    err = fn(x.data_ptr(), blocks.data_ptr(), hm.data_ptr(), o1.data_ptr(), o2r.data_ptr(),
-             hx.data_ptr(), n, h, w, c, int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
+    o1, o2r = (torch.empty_like(x), torch.empty_like(x)) if part != "hilbert" else (None, None)
+    fn = _build.function("sfconv_v4", "ud_sfconv_v4_fwd", 6, 8)
+    err = fn(x.data_ptr(), blocks.data_ptr(), hm.data_ptr(), None if o1 is None else o1.data_ptr(),
+             None if o2r is None else o2r.data_ptr(), hx.data_ptr(), n, h, w, c,
+             int(x.dtype == torch.bfloat16), bn, rows, parts, _build.stream_ptr(x))
     _build.check(err, "sfconv_freq_v4")
     sfconv_freq_v4.launches += 1
-    return o1, o2r
+    return hx if part == "hilbert" else (o1, o2r)
 
 
 def _launch_v4_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -180,20 +183,28 @@ def _launch_v4_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_v3(x: torch.Tensor, rx: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """K4: x@m1 − H(x)@m2 + rx@m3 − H(rx)@m4."""
-    _check_operands("sfconv_freq_v3", x, rx)
-    blocks = _check_blocks(x, blocks)
+def _launch_v3(x: torch.Tensor, rx: torch.Tensor, w_packed: torch.Tensor,
+               transposed: bool = False, part: str = "both",
+               hxr: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """K4: x@m1 + H(x)@m2 + rx@m3 + H(rx)@m4 for the blocks of the packed
+    kernel, every one added: the forward's (A1, −A2, B1, −B2), or with
+    ``transposed`` x̄'s (A1ᵀ, A2ᵀ, B1ᵀ, −B2ᵀ). part "hilbert" runs the two
+    Hilbert passes alone and returns (hx, hr); part "mix" runs the mix alone
+    on a given ``hxr`` (bf16 only)."""
+    _check_operands("sfconv_freq_v3", x, rx, *(hxr or ()))
     n, h, w, c = x.shape
+    bn, rows, parts = _mix_args("sfconv_freq_v3", x, w_packed, part, "K4")
+    hx, hr = hxr or (torch.empty_like(x), torch.empty_like(x))
+    blocks = _split_blocks(w_packed, c, x.dtype, transposed, negate_last=True)
     hm = _device_hilbert(w, x.dtype, x.device)
-    out, hx, hr = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    fn = _build.function("sfconv_v3", "ud_sfconv_v3_fwd", 7, 5)
-    err = fn(x.data_ptr(), rx.data_ptr(), blocks.data_ptr(), hm.data_ptr(), out.data_ptr(),
-             hx.data_ptr(), hr.data_ptr(), n, h, w, c, int(x.dtype == torch.bfloat16),
-             _build.stream_ptr(x))
+    out = torch.empty_like(x) if part != "hilbert" else None
+    fn = _build.function("sfconv_v3", "ud_sfconv_v3_fwd", 7, 8)
+    err = fn(x.data_ptr(), rx.data_ptr(), blocks.data_ptr(), hm.data_ptr(),
+             None if out is None else out.data_ptr(), hx.data_ptr(), hr.data_ptr(), n, h, w, c,
+             int(x.dtype == torch.bfloat16), bn, rows, parts, _build.stream_ptr(x))
     _build.check(err, "sfconv_freq_v3")
     sfconv_freq_v3.launches += 1
-    return out
+    return (hx, hr) if part == "hilbert" else out
 
 
 def _launch_v3_dw(x: torch.Tensor, rx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -217,9 +228,8 @@ def sfconv_freq_v4_bwd(x: torch.Tensor, g: torch.Tensor, w_packed: torch.Tensor)
     on g for x̄ and K3-bwd for the weight sums."""
     if not _build.uses_kernel(x):
         return sfconv_freq_v4_bwd_plain(x, g, w_packed)
-    c = x.shape[-1]
-    x1, x2r = _launch_v4(g, _transposed_blocks(w_packed, c))
-    return x1.add_(x2r), _repack(_launch_v4_dw(x, g), c, w_packed.dtype)
+    x1, x2r = _launch_v4(g, w_packed, transposed=True)
+    return x1.add_(x2r), _repack(_launch_v4_dw(x, g), x.shape[-1], w_packed.dtype)
 
 
 def sfconv_freq_v3_bwd(x: torch.Tensor, g: torch.Tensor, w_packed: torch.Tensor):
@@ -227,10 +237,9 @@ def sfconv_freq_v3_bwd(x: torch.Tensor, g: torch.Tensor, w_packed: torch.Tensor)
     on (g, R(g)) for x̄ and K4-bwd for the weight sums."""
     if not _build.uses_kernel(x):
         return sfconv_freq_v3_bwd_plain(x, g, w_packed)
-    c = x.shape[-1]
-    x_bar = _launch_v3(g, double_reversal(g).contiguous(), _transposed_blocks(w_packed, c))
+    x_bar = _launch_v3(g, double_reversal(g).contiguous(), w_packed, transposed=True)
     sums = _launch_v3_dw(x, double_reversal(x).contiguous(), g)
-    return x_bar, _repack_v3(sums, c, w_packed.dtype)
+    return x_bar, _repack_v3(sums, x.shape[-1], w_packed.dtype)
 
 
 class _SFConvFreqV4(torch.autograd.Function):
@@ -239,7 +248,7 @@ class _SFConvFreqV4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_packed):
         ctx.save_for_backward(x, w_packed)
-        o1, o2r = _launch_v4(x, _blocks(w_packed))
+        o1, o2r = _launch_v4(x, w_packed)
         return o1.add_(o2r)  # o1 + R(o2), added in x's dtype
 
     @staticmethod
@@ -255,7 +264,7 @@ class _SFConvFreqV3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_packed):
         ctx.save_for_backward(x, w_packed)
-        return _launch_v3(x, double_reversal(x).contiguous(), _blocks(w_packed))
+        return _launch_v3(x, double_reversal(x).contiguous(), w_packed)
 
     @staticmethod
     def backward(ctx, grad_out):
