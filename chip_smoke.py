@@ -9,7 +9,8 @@ Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
 K2 on the gradient for x_bar), K3 (sfconv_freq_v4, split output), K3-bwd,
 K4 (sfconv_freq_v3, over a materialised double reversal) and K4-bwd
 against their plain PyTorch versions on the card at the shapes the serving
-and training paths and the per-op A/B tool give them, timing each (K2, K3
+and training paths and the per-op A/B tool give them, timing each (K1 warm
+and with L2 cold, beside a copy of the same bytes; K2, K3
 and K4 also as their Hilbert pass and their mix apart; every SFConv kernel
 but K3-bwd and K4-bwd beside a cuBLAS product of the same shape as a
 yardstick), checking the block split bit for bit, and checking that two
@@ -111,39 +112,152 @@ def phase_build():
                 log(f"[ptxas {name}] {line.strip()}")
 
 
-def phase_k1(quick: bool, card: str) -> dict:
+def time_queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``iters`` launches of ``fn`` back to back with the
+    host ahead of the card: the launches queue behind a spin of about 5 ms
+    on the card (``torch.cuda._sleep``), so a kernel shorter than the host's
+    cost per call is timed and not the host. The input stays in L2."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Median time of ``iters`` launches of ``fn``, each timed alone with L2
+    cold: before each, outside its event pair, a 256 MB scratch buffer is
+    written, then its first half read back, so that L2 holds none of fn's
+    inputs and no dirty line that fn's own writes would have to write back."""
+    import torch
+
+    scratch = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for i in range(iters):
+        scratch.fill_(float(i))
+        scratch[: scratch.numel() // 2].sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+K1_MEAN, K1_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def _k1_check(x, flip, dt, tol: float, what: str) -> tuple[float, bool]:
+    """K1 against its plain version on the card: (max |err|, bitwise equal);
+    raises past ``tol``."""
     import torch
 
     from unidefense_torch.ops.preprocess import normalize_flip, normalize_flip_plain
 
+    got = normalize_flip(x, flip, K1_MEAN, K1_STD, dt)
+    ref = normalize_flip_plain(x, flip, K1_MEAN, K1_STD, dt)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"K1 {what} {dt}: max |err| {err} > {tol}")
+    return err, torch.equal(got, ref)
+
+
+def phase_k1(quick: bool, card: str) -> dict:
+    """K1 against its plain version at the serving (b32) and training (b20)
+    batches of 380² and 256², each flip pattern and both output dtypes; on a
+    contiguous view that is not 16-byte aligned (the scalar path); at small
+    shapes with a partial last tile, a vector across rows, and no tile at
+    all. Then the times at the four batches: cold (time_cold_ms, the one
+    the bound's share is taken from), queued (time_queued_ms) and warm
+    (time_ms, back to back as the host issues them: for a kernel this short
+    that is the host's cost per call), beside the plain version's and the
+    bytes yardstick ``copy_ms``, one u8 -> out_dtype copy_ of the same
+    bytes (not library_ms: it does not compute K1's function)."""
+    from functools import partial
+
+    import torch
+
+    from unidefense_torch.ops.preprocess import (
+        normalize_flip, normalize_flip_geometry, normalize_flip_plain)
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
-    main = None
-    for size in (380, 256):
-        x = torch.randint(0, 256, (32, size, size, 3), generator=gen, device="cuda",
+    dtypes = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))
+    worst, exact, checks = 0.0, True, 0
+
+    def check(x, flip, dt, tol, what):
+        nonlocal worst, exact, checks
+        err, same = _k1_check(x, flip, dt, tol, what)
+        worst, exact, checks = max(worst, err), exact and same, checks + 1
+
+    batches = [(n, size) for size in (380, 256) for n in (32, 20)]
+    inputs = {}
+    for n, size in batches:
+        x = torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
                           dtype=torch.uint8)
-        flip = torch.rand(32, generator=gen, device="cuda") < 0.5
-        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            got = normalize_flip(x, flip, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), dt)
-            ref = normalize_flip_plain(x, flip, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225), dt)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            worst = max(worst, err)
-            if not err <= tol:
-                raise AssertionError(f"K1 {size}^2 {dt}: max |err| {err} > {tol}")
-            nbytes = x.numel() * (1 + got.element_size()) + flip.numel()
+        mixed = torch.rand(n, generator=gen, device="cuda") < 0.5
+        inputs[n, size] = x, mixed
+        for flip in (None, torch.ones(n, dtype=torch.bool, device="cuda"), mixed):
+            for dt, tol in dtypes:
+                check(x, flip, dt, tol, f"{n}x{size}x{size}x3")
+        flat = torch.randint(0, 256, (x.numel() + 16,), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+        view = flat[1:1 + x.numel()].view(x.shape)
+        if not (view.is_contiguous() and view.data_ptr() % 16 == 1):
+            raise AssertionError("K1: the offset view is not a misaligned contiguous batch")
+        for dt, tol in dtypes:
+            check(view, mixed, dt, tol, f"{n}x{size}x{size}x3 at a 1-byte offset")
+    for shape in ((3, 7, 13), (4, 5, 1), (2, 3, 7), (1, 3, 427)):
+        x = torch.randint(0, 256, (*shape, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        flip = torch.arange(shape[0], device="cuda") % 3 != 1
+        for dt, tol in dtypes:
+            check(x, flip, dt, tol, f"{shape}")
+            view = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+            check(view, flip, dt, tol, f"{shape} at a 1-byte offset")
+    log(f"[K1] {checks} checks (4 batches x 3 flip patterns x 2 dtypes, 1-byte offsets, small "
+        f"shapes): max |err| {worst:.3g} (tol 1e-5 fp32, 1e-2 bf16), bitwise equal to plain: "
+        f"{exact}")
+    if quick:
+        return dict(max_abs_err=worst)
+    main = None
+    for n, size in batches:
+        x, flip = inputs[n, size]
+        for dt, _ in dtypes:
+            g = normalize_flip_geometry(n, size, size, dt)
+            out_bytes = torch.finfo(dt).bits // 8
+            nbytes = x.numel() * (1 + out_bytes) + flip.numel()
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            if quick:
-                log(f"[K1] 32x{size}x{size}x3 -> {dt}: max |err| {err:.3g} (tol {tol}) ok")
-                continue
-            ms = time_ms(lambda: normalize_flip(x, flip, out_dtype=dt))
-            plain = time_ms(lambda: normalize_flip_plain(x, flip, out_dtype=dt))
-            log(f"[K1] 32x{size}x{size}x3 -> {dt}: max |err| {err:.3g} (tol {tol}); "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-                f"(bytes {nbytes}), {card}")
-            if size == 380 and dt == torch.float32:
-                main = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes")
-    return dict(max_abs_err=worst, **(main or {}))
+            kernel = partial(normalize_flip, x, flip, K1_MEAN, K1_STD, dt)
+            plain = partial(normalize_flip_plain, x, flip, K1_MEAN, K1_STD, dt)
+
+            def copy(x=x, dt=dt):
+                return torch.empty(x.shape, dtype=dt, device="cuda").copy_(x)
+
+            t = dict(warm=time_ms(kernel), queued=time_queued_ms(kernel), ms=time_cold_ms(kernel),
+                     plain_warm=time_ms(plain), plain_ms=time_cold_ms(plain),
+                     copy_warm=time_ms(copy), copy_ms=time_cold_ms(copy))
+            log(f"[K1] {n}x{size}x{size}x3 -> {dt} (R {g.rows}, {g.tiles} tiles, {g.tail} scalar "
+                f"rows, grid {g.grid}): kernel cold {t['ms']:.4f} ms ({bound / t['ms']:.1%} of "
+                f"bound), queued {t['queued']:.4f} ms, warm {t['warm']:.4f} ms; plain cold "
+                f"{t['plain_ms']:.4f}, warm {t['plain_warm']:.4f}; copy_ms cold "
+                f"{t['copy_ms']:.4f}, warm {t['copy_warm']:.4f} (kernel / copy cold "
+                f"{t['ms'] / t['copy_ms']:.3f}); bound {bound:.4f} ms (bytes {nbytes}), {card}")
+            if (n, size, dt) == (32, 380, torch.float32):
+                main = dict(ms=t["ms"], queued_ms=t["queued"], warm_ms=t["warm"],
+                            plain_ms=t["plain_ms"], copy_ms=t["copy_ms"], bound_ms=bound,
+                            bound_by="bytes")
+    return dict(max_abs_err=worst, **main)
 
 
 def _sfconv_bound_ms(n, hw, c, hilberts, streams, out_bytes) -> tuple[float, str]:
@@ -869,7 +983,8 @@ def main() -> int:
                     replaces=f"unidefense_tpu/ops/{replaces}", launches=launches,
                     max_abs_err=measured["max_abs_err"], ms=measured["ms"],
                     plain_ms=measured["plain_ms"], bound_ms=measured["bound_ms"],
-                    bound_by=measured["bound_by"], library_ms=None)
+                    bound_by=measured["bound_by"], library_ms=None,
+                    **{k: measured[k] for k in ("queued_ms", "warm_ms", "copy_ms") if k in measured})
 
     lines = [
         line("K1 normalize_flip", "normalize_flip.cu", "pallas_preprocess.py:42", k1_launches, k1),

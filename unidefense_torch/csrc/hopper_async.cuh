@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels (wgmma_mix.cuh's
-// channel mix of K2, K3 and K4, weight_sums.cuh's sums): shared-memory addresses, mbarriers,
-// 16-byte cp.async copies that complete on an mbarrier, the 128-byte
+// channel mix of K2, K3 and K4, weight_sums.cuh's sums) and K1's tile ring
+// (normalize_flip.cu): shared-memory addresses, mbarriers,
+// 16-byte cp.async copies that complete on an mbarrier or in commit groups, the 128-byte
 // swizzled tile layout and its wgmma matrix descriptors, wgmma itself, and
 // setmaxnreg. All of it is inline PTX for sm_90a; no library is involved.
 //
@@ -64,6 +65,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
+}
+
+// Close the group of cp.async copies this thread issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // One arrival on `bar` once every cp.async this thread issued so far has

@@ -8,7 +8,7 @@ The default order is parent, change, change, parent (``--order PCCP``), so
 that a drift of the card over the call falls on both trees alike. Each run's
 full output goes to ``<out>/smoke_ab_<i>_<P|C>.log`` (default
 ``smoke_ab_logs/``); the summary prints, per run, the summed kernel lines
-(``[K2] per UDEB4 forward ...``), the serving and training rates and the
+(``[K2] per UDEB4 forward ...``), K1's time per batch, the serving and training rates and the
 profiled device time and busy share. Every run builds its tree's kernels in
 that tree. Needs one CUDA card.
 """
@@ -25,6 +25,9 @@ ROOT = Path(__file__).resolve().parents[2]
 
 _PATTERNS = {
     "kernel": re.compile(r"^\[(K\d(?:-bwd)?)\] per .*?kernel ([\d.]+) ms.*?bound ([\d.]+) ms"),
+    # K1 per batch: warm back to back (every tree), cold (trees that time it)
+    "k1": re.compile(r"^\[K1\] (\d+x\d+x\d+)x3 -> torch\.(\w+).*?(?:kernel|warm) ([\d.]+) ms"),
+    "k1_cold": re.compile(r"^\[K1\] (\d+x\d+x\d+)x3 -> torch\.(\w+).*?kernel cold ([\d.]+) ms"),
     "rate": re.compile(r"^\[(serve|train|serve-v4|train-v4)\] .*?([\d.]+) img/s"),
     "profile": re.compile(r"^\[profile\] (.*?): wall ([\d.]+) ms, device busy ([\d.]+) ms "
                           r"\(busy share ([\d.]+)\)"),
@@ -37,6 +40,10 @@ def summarise(text: str) -> dict:
     for line in text.splitlines():
         if m := _PATTERNS["kernel"].match(line):
             got[f"{m[1]} ms"] = float(m[2])
+        elif m := _PATTERNS["k1"].match(line):
+            got[f"K1 {m[1]} {m[2]} warm ms"] = float(m[3])
+            if c := _PATTERNS["k1_cold"].match(line):
+                got[f"K1 {m[1]} {m[2]} cold ms"] = float(c[3])
         elif m := _PATTERNS["rate"].match(line):
             got[f"[{m[1]}] img/s"] = float(m[2])
         elif m := _PATTERNS["profile"].match(line):
