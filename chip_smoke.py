@@ -9,29 +9,33 @@ Phases: build the CUDA kernels from ``unidefense_torch/csrc``; hold K1
 K2 on the gradient for x_bar), K3 (sfconv_freq_v4, split output), K3-bwd,
 K4 (sfconv_freq_v3, over a materialised double reversal) and K4-bwd
 against their plain PyTorch versions on the card at the shapes the serving
-and training paths and the per-op A/B tool give them, timing each (K1 warm
-and with L2 cold, beside a copy of the same bytes; K2, K3
-and K4 also as their Hilbert pass and their mix apart; every SFConv kernel
-but K3-bwd and K4-bwd beside a cuBLAS product of the same shape as a
-yardstick), checking the block split bit for bit, and checking that two
-runs of each bf16 weight-sum kernel agree bit for bit; serve UDEB4 at 380x380,
-batch 32, bf16 through ``Predictor`` with seeded random weights and check
-that every batch went through K1 and K2; compare the card's fp32 and bf16
-Predictor with the CPU Predictor; train UDEB4 at 380x380, 10 real + 10
-fake, bf16, with the two-pass step and the optimizer of
-config_template/forgery/model_udeb4.yml, checking every step's launches of
-K1, K2 and K2-bwd; compare one fp32 training step on the card with the same
-step on the CPU. Then the same three paths on the K3 route (``v4_widths``
-{48, 24} at 380^2, {32, 16} at 256^2), where K3 and K3-bwd take the SFConv
-widths listed; and the per-op A/B tool ``unidefense_torch.tools.bench_sfconv``,
-the path of K4 and K4-bwd. Any failure raises, so the exit code is not 0 and
-no result line is printed. The last line is the result object; the line
-before it the kernel table.
+and training paths of UDEB4, UDR18 and UDR50 and the per-op A/B tool give
+them (``SFCONV_SHAPES``), timing each (K1 warm and with L2 cold, beside a
+copy of the same bytes; K2, K3 and K4 also as their Hilbert pass and their
+mix apart; every SFConv kernel but K3-bwd and K4-bwd beside a cuBLAS
+product of the same shape as a yardstick), checking the block split bit for
+bit, and checking that two runs of each bf16 weight-sum kernel agree bit
+for bit; serve UDEB4 at 380x380, batch 32, bf16 through ``Predictor`` with
+seeded random weights and check that every batch went through K1 and K2;
+compare the card's fp32 and bf16 Predictor with the CPU Predictor; train
+UDEB4 at 380x380, 10 real + 10 fake, bf16, with the two-pass step and the
+optimizer of config_template/forgery/model_udeb4.yml, checking every step's
+launches of K1, K2 and K2-bwd; compare one fp32 training step on the card
+with the same step on the CPU. Then the same paths on the K3 route
+(``v4_widths`` {48, 24} at 380^2, {32, 16} at 256^2), where K3 and K3-bwd
+take the SFConv widths listed; the same four paths on the default route for
+UDR18 at 256x256 (config_template/ocim/model_udr18.yml) and UDR50 at
+380x380 (config_template/uniatt/Prot1/model_udr50.yml), tagged
+``-udr18`` and ``-udr50``; and the per-op A/B tool
+``unidefense_torch.tools.bench_sfconv``, the path of K4 and K4-bwd. Any
+failure raises, so the exit code is not 0 and no result line is printed.
+The last line is the result object; the line before it the kernel table.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -43,34 +47,57 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
 SEED = 0
 
-# config_template/forgery/model_udeb4.yml (model and config sections) and
-# data_ffc23.yml (num_steps, 380x380, train_batch_size 10 real + 10 fake)
-UDEB4_MODEL = {"num_classes": 2, "drop_rate": 0.2, "extractor": "efficientnet-b4"}
-UDEB4_CONFIG = {
-    "warmup_step": 0, "lambda_triplet": 0.1, "lambda_recons": 0.1, "lambda_freq": 1.0,
-    "lambda_mask": 0.1, "lambda_fac": 0.1,
-    "optimizer": {"name": "adamw", "lr": 1e-4, "betas": [0.9, 0.999], "weight_decay": 5e-6,
-                  "amsgrad": True},
-    "scheduler": {"name": "StepLR", "step_size": 22500, "gamma": 0.5},
+# each model's YAML and the resolution its data YAML crops to:
+# config_template/forgery/data_ffc23.yml, ocim/data_m.yml (RandomResizedCrop
+# 256) and uniatt/Prot1/data_ffpp.yml (380); each trains at 10 real + 10 fake
+MODELS = {
+    "UDEB4": ("config_template/forgery/model_udeb4.yml", 380),
+    "UDR18": ("config_template/ocim/model_udr18.yml", 256),
+    "UDR50": ("config_template/uniatt/Prot1/model_udr50.yml", 380),
 }
-NUM_STEPS = 90000
 
-# (H=W, C, launches per UDEB4 forward) of every SFConv frequency branch
+
+@functools.lru_cache(maxsize=None)
+def model_spec(name: str) -> dict:
+    """A model's ``model:`` and ``config:`` sections, as its YAML gives them
+    (``registry.build_model`` takes the model keys its class takes), its
+    resolution and the ``num_steps`` of the data YAML it names."""
+    import yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path, res = MODELS[name]
+    with open(os.path.join(root, path)) as f:
+        doc = yaml.safe_load(f)
+    with open(os.path.join(root, doc["data"]["file"])) as f:
+        num_steps = int(yaml.safe_load(f)["num_steps"])
+    return dict(res=res, model=doc["model"], config=doc["config"], num_steps=num_steps)
+
+
+# (H=W, C, launches per forward) of every SFConv frequency branch of a model
+# at a resolution, in forward order; the branch runs at the SFConv's input
+# size (a strided SFConv pools it after)
 SFCONV_SHAPES = {
-    380: [(95, 192, 1), (48, 336, 4), (24, 672, 6), (24, 960, 6), (12, 1632, 7)],
-    256: [(64, 192, 1), (32, 336, 4), (16, 672, 6), (16, 960, 6), (8, 1632, 7)],
+    ("UDEB4", 380): [(95, 192, 1), (48, 336, 4), (24, 672, 6), (24, 960, 6), (12, 1632, 7)],
+    ("UDEB4", 256): [(64, 192, 1), (32, 336, 4), (16, 672, 6), (16, 960, 6), (8, 1632, 7)],
+    ("UDR18", 256): [(64, 128, 3), (32, 256, 3), (16, 512, 2)],
+    ("UDR18", 380): [(95, 128, 3), (48, 256, 3), (24, 512, 2)],
+    ("UDR50", 256): [(64, 128, 1), (32, 128, 3), (32, 256, 1), (16, 256, 5), (16, 512, 1),
+                     (8, 512, 1)],
+    ("UDR50", 380): [(95, 128, 1), (48, 128, 3), (48, 256, 1), (24, 256, 5), (24, 512, 1),
+                     (12, 512, 1)],
 }
 # the K3 route: SFConv widths given to K3 (sfconv_pallas.py:79's A/B setting
 # at 380^2, and the same blocks at 256^2)
 V4_WIDTHS = {380: frozenset({48, 24}), 256: frozenset({32, 16})}
 
 
-def per_forward_launches(res: int, v4_widths) -> tuple[int, int]:
-    """(K2, K3) launches of one UDEB4 forward at res^2 on a route."""
+def per_forward_launches(model: str, res: int, v4_widths) -> tuple[int, int]:
+    """(K2, K3) launches of one forward of ``model`` at res^2 on a route."""
     from unidefense_torch.ops.sfconv_rowtiled import uses_v4
 
-    k3 = sum(n for hw, c, n in SFCONV_SHAPES[res] if uses_v4((1, hw, hw, c), v4_widths))
-    return sum(n for _, _, n in SFCONV_SHAPES[res]) - k3, k3
+    shapes = SFCONV_SHAPES[model, res]
+    k3 = sum(n for hw, c, n in shapes if uses_v4((1, hw, hw, c), v4_widths))
+    return sum(n for _, _, n in shapes) - k3, k3
 
 
 def log(msg: str) -> None:
@@ -274,12 +301,17 @@ def _sfconv_bound_ms(n, hw, c, hilberts, streams, out_bytes) -> tuple[float, str
 def sfconv_check_shapes() -> list[tuple[int, int, str]]:
     """(H=W, C, origin) of every shape the SFConv frequency kernels are
     checked at: UDEB4's at 380^2 and 256^2, then those of the per-op A/B
-    tool that UDEB4 lacks (80^2/C192 and 12^2/C960)."""
+    tool that UDEB4 lacks (80^2/C192 and 12^2/C960), then UDR18's and
+    UDR50's (C = 128, 256, 512)."""
     from unidefense_torch.tools.bench_sfconv import SHAPES_256, SHAPES_380
 
-    shapes = {(hw, c): f"{res}^2" for res, ss in SFCONV_SHAPES.items() for hw, c, _ in ss}
+    shapes = {(hw, c): f"UDEB4 {res}^2" for (model, res), ss in SFCONV_SHAPES.items()
+              if model == "UDEB4" for hw, c, _ in ss}
     for _, w, c in SHAPES_256 + SHAPES_380:
         shapes.setdefault((w, c), "A/B tool")
+    for (model, res), ss in SFCONV_SHAPES.items():
+        for hw, c, _ in ss:
+            shapes.setdefault((hw, c), f"{model} {res}^2")
     return [(hw, c, origin) for (hw, c), origin in shapes.items()]
 
 
@@ -389,8 +421,10 @@ def sfconv_kernels() -> list[dict]:
     one UDEB4 forward or backward at 380^2 on the kernel's route (K2 and
     K2-bwd on the default route, K3 and K3-bwd on V4_WIDTHS), or one pass of
     the A/B tool over its shapes (K4 twice per shape, the forward and x_bar;
-    K4-bwd once). A backward also has its sums kernel alone and the plain
-    sums, as factories of (x, g) that return the call to time."""
+    K4-bwd once); K2 and K2-bwd also log their sums over a UDR18 and a UDR50
+    forward or backward (``also``). A backward also has its sums kernel
+    alone and the plain sums, as factories of (x, g) that return the call
+    to time."""
     from functools import partial
 
     from unidefense_torch.ops import sfconv_cuda as k2
@@ -398,7 +432,9 @@ def sfconv_kernels() -> list[dict]:
     from unidefense_torch.ops.sfconv_spatial import double_reversal, sfconv_freq_spatial
     from unidefense_torch.tools.bench_sfconv import SHAPES_256, SHAPES_380
 
-    fwd = {(hw, c): n for hw, c, n in SFCONV_SHAPES[380]}
+    fwd = {(hw, c): n for hw, c, n in SFCONV_SHAPES["UDEB4", 380]}
+    udr = {(m, MODELS[m][1]): {(hw, c): n for hw, c, n in SFCONV_SHAPES[m, MODELS[m][1]]}
+           for m in ("UDR18", "UDR50")}
     v4 = {k: n for k, n in fwd.items() if rt.uses_v4((1, k[0], k[0], k[1]), V4_WIDTHS[380])}
     ab = [(w, c) for _, w, c in SHAPES_256 + SHAPES_380]
     route = f"on v4_widths {sorted(V4_WIDTHS[380])}"
@@ -410,12 +446,14 @@ def sfconv_kernels() -> list[dict]:
     return [
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
              hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32",
+             also={f"per {m} forward at {r}^2 b32": c for (m, r), c in udr.items()},
              parts=k2_parts, gemm=k2_gemm, check=split_check),
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
              seed=SEED + 4, hilberts=1, streams=2, counts=fwd,
              sums=lambda x, g: partial(k2._launch_dw, x, g),
              sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g), gemm=k2_bwd_gemm,
-             workload="per UDEB4 backward at 380^2 b20"),
+             workload="per UDEB4 backward at 380^2 b20",
+             also={f"per {m} backward at {r}^2 b20": c for (m, r), c in udr.items()}),
         dict(name="K3", fn=rt.sfconv_freq_v4, plain=rt.sfconv_freq_v4_plain, batch=32,
              seed=SEED + 10, hilberts=1, streams=3, counts=v4, parts=k3_parts, gemm=k3_gemm,
              workload=f"per UDEB4 forward at 380^2 b32 {route}"),
@@ -434,13 +472,13 @@ def sfconv_kernels() -> list[dict]:
     ]
 
 
-def _summed(spec: dict, per_shape: dict, card: str) -> dict:
+def _summed(spec: dict, per_shape: dict, card: str, counts=None, workload=None) -> dict:
     """The per-shape times of a kernel weighted by the launches of its
-    workload, logged; the extra readings (a backward's whole_ms, K2's
-    hilbert_ms and mix_ms, the cuBLAS yardstick gemm_ms) are logged only. The
-    sum is bound by operations where the shapes bound by operations carry
-    most of its bound."""
-    counts = spec["counts"]
+    workload (``spec``'s, unless given), logged; the extra readings (a
+    backward's whole_ms, K2's hilbert_ms and mix_ms, the cuBLAS yardstick
+    gemm_ms) are logged only. The sum is bound by operations where the
+    shapes bound by operations carry most of its bound."""
+    counts, workload = counts or spec["counts"], workload or spec["workload"]
     keys = [key for key in next(iter(per_shape.values())) if key != "by"]
     total = {key: sum(n * per_shape[k][key] for k, n in counts.items()) for key in keys}
     by_ops = sum(n * per_shape[k]["bound_ms"] for k, n in counts.items()
@@ -449,10 +487,17 @@ def _summed(spec: dict, per_shape: dict, card: str) -> dict:
     names = {"whole_ms": "whole backward", "hilbert_ms": "Hilbert pass", "mix_ms": "mix",
              "gemm_ms": "cuBLAS yardstick"}
     extra = "".join(f"; {names[k]} {total.pop(k):.3f} ms" for k in names if k in total)
-    log(f"[{spec['name']}] {spec['workload']} ({sum(counts.values())} launches): kernel "
+    log(f"[{spec['name']}] {workload} ({sum(counts.values())} launches): kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
         f"{total['bound_ms']:.3f} ms{extra}, {card}")
     return total
+
+
+def _summaries(spec: dict, per_shape: dict, card: str) -> dict:
+    """Each ``also`` workload logged, then the kernel's own, returned."""
+    for workload, counts in spec.get("also", {}).items():
+        _summed(spec, per_shape, card, counts, workload)
+    return _summed(spec, per_shape, card)
 
 
 def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
@@ -504,7 +549,7 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
         log(f"{head}; kernel {ms:.4f} ms{parts}, plain(bf16) {plain_ms:.4f} ms, bound {bound:.4f} "
             f"ms ({by}), {card}")
         per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by, **extra)
-    return dict(max_abs_err=worst_abs, **({} if quick else _summed(spec, per_shape, card)))
+    return dict(max_abs_err=worst_abs, **({} if quick else _summaries(spec, per_shape, card)))
 
 
 def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
@@ -561,22 +606,43 @@ def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
             f"{card}")
         per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, whole_ms=whole, by=by,
                                   **extra)
-    return dict(max_abs_err=worst, **({} if quick else _summed(spec, per_shape, card)))
+    return dict(max_abs_err=worst, **({} if quick else _summaries(spec, per_shape, card)))
 
 
-def seeded_weights(card: str) -> dict:
-    """UDEB4 state_dict from seeded random weights, set so that the network
-    keeps its scale and does not amplify rounding:
+def _residual_norms(model):
+    """The last BatchNorm of every residual branch: an MBConv block's _bn2
+    where it has its skip, a BasicBlock's bn2, a Bottleneck's bn3, an
+    embedder's norm2 (UDR18) or norm3 (UDR50)."""
+    from unidefense_torch.models import efficientnet, resnet
+
+    last = {resnet.BasicBlock: "bn2", resnet.Bottleneck: "bn3",
+            resnet.EmbedderRes18Layer1: "norm2", resnet.EmbedderRes18Layer2: "norm2",
+            resnet.EmbedderRes50Layer1: "norm3", resnet.EmbedderRes50Layer2: "norm3"}
+    for m in model.modules():
+        if isinstance(m, efficientnet.MBConvBlock):
+            s = m.spec
+            if s.id_skip and s.stride == 1 and s.input_filters == s.output_filters:
+                yield m._bn2
+        elif type(m) in last:
+            yield getattr(m, last[type(m)])
+
+
+def seeded_weights(card: str, model_name: str = "UDEB4", device: str = "cuda") -> dict:
+    """A state_dict of ``model_name`` from seeded random weights, set so that
+    the network keeps its scale and does not amplify rounding:
 
     - every sf_coef 0 (the init of -10 weights the frequency branch by 4.5e-5);
     - BatchNorm scales 0.5, and 0.1 on the last BatchNorm of each residual
-      block (a small residual branch at init, as zero-init-last-BN schemes do);
-    - running statistics calibrated on 8 seeded frames: per-channel mean and
-      variance in the backbone, mean 0 and the mean square in the bottleneck;
+      branch (``_residual_norms``: a small residual branch at init, as
+      zero-init-last-BN schemes do; the ResNets' zero init would leave those
+      branches, SFConvs included, out of every check);
+    - running statistics calibrated on 8 seeded frames at the model's
+      resolution: per-channel mean and variance, and mean 0 and the mean
+      square in the bottleneck;
     - the classifier scaled so the logit gap has RMS 0.5 on those frames.
 
     With the init's unit statistics activations decay until every
-    probability is 0.5. With unit BatchNorm scales the random network
+    probability is 0.5. With unit BatchNorm scales the random UDEB4
     amplifies the bf16 rounding of its input about 30-fold over the 32
     blocks, past the bf16 parity bound, which no trained weights here can
     show otherwise."""
@@ -587,8 +653,10 @@ def seeded_weights(card: str) -> dict:
     from unidefense_torch.inference import Predictor
     from unidefense_torch.models.layers import BatchNorm, SFConv
 
-    pred = Predictor("UDEB4", input_size=380, batch_size=8, dtype=torch.float32,
-                     device="cuda", seed=SEED)
+    spec = model_spec(model_name)
+    res = spec["res"]
+    pred = Predictor(model_name, spec["model"], input_size=res, batch_size=8,
+                     dtype=torch.float32, device=device, seed=SEED)
     model = pred.model
     with torch.no_grad():
         for m in model.modules():
@@ -596,10 +664,8 @@ def seeded_weights(card: str) -> dict:
                 m.sf_coef.zero_()
             elif isinstance(m, BatchNorm) and m is not model.bottleneck:
                 m.weight.fill_(0.5)
-        for blk in model.backbone._blocks:
-            s = blk.spec
-            if s.id_skip and s.stride == 1 and s.input_filters == s.output_filters:
-                blk._bn2.weight.fill_(0.1)
+        for bn in _residual_norms(model):
+            bn.weight.fill_(0.1)
 
     def calibrate(m, args):
         x = args[0].float()
@@ -610,20 +676,21 @@ def seeded_weights(card: str) -> dict:
             m.running_mean.copy_(x.mean((0, 2, 3)))
             m.running_var.copy_(x.var((0, 2, 3), correction=0))
 
-    frames = np.random.default_rng(SEED + 2).integers(0, 256, (8, 380, 380, 3), dtype=np.uint8)
+    frames = np.random.default_rng(SEED + 2).integers(0, 256, (8, res, res, 3), dtype=np.uint8)
     hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
              if isinstance(m, BatchNorm)]
     try:
         with torch.inference_mode():
-            out = model(nchw(pred.device_tf(torch.from_numpy(frames).cuda())))
+            out = model(nchw(pred.device_tf(torch.from_numpy(frames).to(device))))
     finally:
         for h in hooks:
             h.remove()
     with torch.no_grad():
         gap = out["cls_out"][:, 0] - out["cls_out"][:, 1]
         model.classifier.fc.weight.mul_(0.5 / gap.pow(2).mean().sqrt())
-    log(f"[weights] UDEB4 seed {SEED}: {sum(p.numel() for p in model.parameters())} params, "
-        f"sf_coef 0, {len(hooks)} BatchNorms calibrated on 8 seeded frames, {card}")
+    log(f"[weights] {model_name} seed {SEED}: {sum(p.numel() for p in model.parameters())} "
+        f"params, sf_coef 0, {len(hooks)} BatchNorms calibrated on 8 seeded frames at "
+        f"{res}^2, {card}")
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
@@ -646,18 +713,20 @@ def _reset_counts() -> None:
         f.launches = 0
 
 
-def phase_serve(card: str, weights: dict, v4_widths=frozenset(), tag: str = "serve") -> None:
-    """UDEB4 serving at 380^2 b32 bf16 on a route: 3 requests of 64 frames,
-    each batch checked for its K1, K2 and K3 launches."""
+def phase_serve(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
+                tag: str = "serve") -> None:
+    """Serving ``model`` at its resolution, b32 bf16, on a route: 3 requests
+    of 64 frames, each batch checked for its K1, K2 and K3 launches."""
     import numpy as np
     import torch
 
     from unidefense_torch.inference import Predictor
 
-    pred = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=32,
-                     dtype=torch.bfloat16, device="cuda", v4_widths=v4_widths)
+    res = model_spec(model)["res"]
+    pred = Predictor(model, model_spec(model)["model"], state_dict=weights, input_size=res,
+                     batch_size=32, dtype=torch.bfloat16, device="cuda", v4_widths=v4_widths)
     rng = np.random.default_rng(SEED)
-    requests = [rng.integers(0, 256, (64, 380, 380, 3), dtype=np.uint8) for _ in range(3)]
+    requests = [rng.integers(0, 256, (64, res, res, 3), dtype=np.uint8) for _ in range(3)]
     pred.predict_frames(requests[0][:32])  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -669,7 +738,7 @@ def phase_serve(card: str, weights: dict, v4_widths=frozenset(), tag: str = "ser
         times.append(time.perf_counter() - t0)
     k1, k2, k2_bwd, k3, k3_bwd = _route_counts()
     batches = sum(-(-len(f) // 32) for f in requests)
-    per_k2, per_k3 = per_forward_launches(380, v4_widths)
+    per_k2, per_k3 = per_forward_launches(model, res, v4_widths)
     want = (batches, per_k2 * batches, 0, per_k3 * batches, 0)
     if (k1, k2, k2_bwd, k3, k3_bwd) != want:
         raise AssertionError(f"launches K1, K2, K2-bwd, K3, K3-bwd = {(k1, k2, k2_bwd, k3, k3_bwd)}; "
@@ -680,11 +749,12 @@ def phase_serve(card: str, weights: dict, v4_widths=frozenset(), tag: str = "ser
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_request = statistics.median(times) * 1e3
     route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
-    log(f"[{tag}] UDEB4 380^2 b32 bf16 ({route}), 3 requests x 64 frames: {192 / sum(times):.2f} "
-        f"img/s, p50 {per_request:.2f} ms per request ({per_request / 2:.2f} ms per batch), peak "
-        f"memory {peak:.3f} GiB, launches K1 {k1} K2 {k2} K3 {k3} over {batches} batches "
-        f"({per_k2} K2 and {per_k3} K3 per batch), probs in [{p.min():.4f}, {p.max():.4f}], {card}")
-    phase_profile(card, f"one batch 380^2 b32 bf16 ({route})",
+    log(f"[{tag}] {model} {res}^2 b32 bf16 ({route}), 3 requests x 64 frames: "
+        f"{192 / sum(times):.2f} img/s, p50 {per_request:.2f} ms per request "
+        f"({per_request / 2:.2f} ms per batch), peak memory {peak:.3f} GiB, launches K1 {k1} "
+        f"K2 {k2} K3 {k3} over {batches} batches ({per_k2} K2 and {per_k3} K3 per batch), probs "
+        f"in [{p.min():.4f}, {p.max():.4f}], {card}")
+    phase_profile(card, f"one batch of {model} {res}^2 b32 bf16 ({route})",
                   lambda: pred.predict_frames(requests[0][:32]))
 
 
@@ -731,32 +801,37 @@ def phase_profile(card: str, label: str, fn) -> None:
         f"(busy share {busy / wall_ms:.3f}), {len(kernels)} kernels; {parts}; {card}")
 
 
-def phase_parity(card: str, weights: dict, v4_widths=frozenset(), tag: str = "parity") -> None:
-    """The card's fp32 and bf16 Predictor against the fp32 CPU Predictor on
-    the same route (the CPU takes the plain versions)."""
+def phase_parity(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
+                 tag: str = "parity") -> None:
+    """The card's fp32 and bf16 Predictor of ``model`` at its resolution
+    against the fp32 CPU Predictor on the same route (the CPU takes the
+    plain versions), batch 2; each card run checked for its launches."""
     import numpy as np
     import torch
 
     from unidefense_torch.inference import Predictor
 
-    base = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=2,
+    res, cfg = model_spec(model)["res"], model_spec(model)["model"]
+    base = Predictor(model, cfg, state_dict=weights, input_size=res, batch_size=2,
                      dtype=torch.float32, device="cpu", v4_widths=v4_widths)
-    frames = np.random.default_rng(SEED + 3).integers(0, 256, (2, 380, 380, 3), dtype=np.uint8)
+    frames = np.random.default_rng(SEED + 3).integers(0, 256, (2, res, res, 3), dtype=np.uint8)
     ref = base.predict_frames(frames)
+    per_k2, per_k3 = per_forward_launches(model, res, v4_widths)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         for dt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
-            gpu = Predictor("UDEB4", state_dict=weights, input_size=380, batch_size=2, dtype=dt,
+            gpu = Predictor(model, cfg, state_dict=weights, input_size=res, batch_size=2, dtype=dt,
                             device="cuda", v4_widths=v4_widths)
             _reset_counts()
             got = gpu.predict_frames(frames)
-            k3 = _route_counts()[3]
-            if k3 != per_forward_launches(380, v4_widths)[1]:
-                raise AssertionError(f"{tag} {dt}: {k3} K3 launches")
+            if _route_counts() != (1, per_k2, 0, per_k3, 0):
+                raise AssertionError(f"{tag} {dt}: launches K1, K2, K2-bwd, K3, K3-bwd = "
+                                     f"{_route_counts()}; expected {(1, per_k2, 0, per_k3, 0)}")
             d = float(np.abs(got - ref).max())
-            log(f"[{tag}] {dt} cuda vs fp32 cpu Predictor (v4_widths {sorted(v4_widths)}): probs "
-                f"{got} vs {ref}, max |dprob| {d:.3g} (tol {tol}), {card}")
+            log(f"[{tag}] {model} {res}^2 {dt} cuda vs fp32 cpu Predictor (v4_widths "
+                f"{sorted(v4_widths)}): probs {got} vs {ref}, max |dprob| {d:.3g} (tol {tol}), "
+                f"{card}")
             if not d <= tol:
                 raise AssertionError(f"{tag} {dt}: {d} > {tol}")
     finally:
@@ -764,17 +839,18 @@ def phase_parity(card: str, weights: dict, v4_widths=frozenset(), tag: str = "pa
 
 
 def _groups_of(model) -> dict:
-    """Parameter groups, each of which must move in a train step; the
-    SFConv frequency kernels (trained through K2-bwd) are a group of their
-    own."""
+    """Parameter groups, each of which must move in a train step: the
+    model's top-level modules (a backbone's by its own top level), each
+    split into its SFConv frequency kernels (trained through K2-bwd) and
+    the rest."""
     groups: dict = {}
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
         parts = name.split(".")
         key = parts[0] if parts[0] != "backbone" else ".".join(parts[:2])
-        if key == "backbone._blocks":
-            key = "backbone._blocks (" + ("freq_conv" if "freq_conv" in name else "other") + ")"
+        if "freq_conv" in parts:
+            key += " (freq_conv)"
         groups.setdefault(key, []).append(p)
     return groups
 
@@ -789,12 +865,14 @@ def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
     return {"image": torch.from_numpy(frames).to(device), "label": labels.to(device)}
 
 
-def phase_train(card: str, weights: dict, v4_widths=frozenset(), tag: str = "train") -> tuple:
-    """The port's two-pass UDEB4 step at 380^2, 10 real + 10 fake, bf16, the
-    YAML's optimizer and drop rates, on a route: 2 warm-up steps, then 5
-    timed steps, each checked for its exact launches of K1, K2, K2-bwd, K3
-    and K3-bwd (two forwards, and two backwards that launch K2 or K3 on the
-    gradient and K2-bwd or K3-bwd). Returns the totals over the 5 steps."""
+def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
+                tag: str = "train") -> tuple:
+    """The port's two-pass step of ``model`` at its resolution, 10 real + 10
+    fake, bf16, its YAML's optimizer and drop rates, on a route: 2 warm-up
+    steps, then 5 timed steps, each checked for its exact launches of K1,
+    K2, K2-bwd, K3 and K3-bwd (two forwards, and two backwards that launch
+    K2 or K3 on the gradient and K2-bwd or K3-bwd). Returns the totals over
+    the 5 steps."""
     import torch
 
     from unidefense_torch.data.transforms import DevicePipeline
@@ -802,19 +880,21 @@ def phase_train(card: str, weights: dict, v4_widths=frozenset(), tag: str = "tra
     from unidefense_torch.train.optim import build_optimizer
     from unidefense_torch.train.step import create_train_state, make_train_step
 
-    model = build_model("UDEB4", UDEB4_MODEL, dtype=torch.bfloat16, v4_widths=v4_widths)
-    model.load_state_dict(weights, strict=True)
-    tx, _ = build_optimizer(UDEB4_CONFIG)
-    state = create_train_state(model, tx)
-    step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 10, 10,
+    spec = model_spec(model)
+    res = spec["res"]
+    net = build_model(model, spec["model"], dtype=torch.bfloat16, v4_widths=v4_widths)
+    net.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(spec["config"])
+    state = create_train_state(net, tx)
+    step = make_train_step(tx, spec["config"], spec["num_steps"], 10, 10,
                            preprocess=DevicePipeline(hflip_p=0.5))
-    batch = _train_batch(10, 10, 380, SEED + 5, "cuda")
+    batch = _train_batch(10, 10, res, SEED + 5, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     for _ in range(2):  # warm-up: cuDNN plans, the allocator
         step(state, batch, gen)
     groups = _groups_of(state.model)
     before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
-    per_k2, per_k3 = per_forward_launches(380, v4_widths)
+    per_k2, per_k3 = per_forward_launches(model, res, v4_widths)
     want = (1, 4 * per_k2, 2 * per_k2, 4 * per_k3, 2 * per_k3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -844,21 +924,24 @@ def phase_train(card: str, weights: dict, v4_widths=frozenset(), tag: str = "tra
     still = sum(m.count(False) for m in moved.values())
     ms = statistics.median(times) * 1e3
     route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
-    log(f"[{tag}] UDEB4 380^2 b10+10 bf16 two-pass step ({route}), adamw amsgrad: "
+    opt = spec["config"]["optimizer"]
+    log(f"[{tag}] {model} {res}^2 b10+10 bf16 two-pass step ({route}), {opt['name']} amsgrad "
+        f"{opt['amsgrad']} wd {opt['weight_decay']}, drop_rate {spec['model']['drop_rate']}: "
         f"{100 / sum(times):.2f} img/s over 5 steps, p50 {ms:.2f} ms per step (steps "
         f"{[round(t * 1e3, 2) for t in times]} ms), peak memory {peak:.3f} GiB, launches per step "
         f"K1 {want[0]} K2 {want[1]} K2-bwd {want[2]} K3 {want[3]} K3-bwd {want[4]} (total "
         f"{counts}), all {len(groups)} parameter groups moved ({still} of "
         f"{sum(map(len, moved.values()))} tensors did not), {card}")
     log(f"[{tag}] losses step 1: {losses[0]}; step 5: {losses[-1]}")
-    phase_profile(card, f"one train step 380^2 b10+10 bf16 ({route})",
+    phase_profile(card, f"one train step of {model} {res}^2 b10+10 bf16 ({route})",
                   lambda: step(state, batch, gen))
     return counts
 
 
-def _parity_step(weights: dict, device: str, v4_widths) -> tuple[dict, dict]:
-    """One deterministic two-pass step of UDEB4 at 256^2, 2 real + 2 fake,
-    fp32, from the given weights and fixed draws: (losses, gradient norms)."""
+def _parity_step(weights: dict, device: str, v4_widths, model: str = "UDEB4") -> tuple[dict, dict]:
+    """One deterministic two-pass step of ``model`` at 256^2, 2 real + 2
+    fake, fp32, from the given weights and fixed draws: (losses, gradient
+    norms)."""
     import dataclasses
 
     import torch
@@ -869,16 +952,17 @@ def _parity_step(weights: dict, device: str, v4_widths) -> tuple[dict, dict]:
     from unidefense_torch.train.perturb import PerturbDraws
     from unidefense_torch.train.step import StepDraws, create_train_state, make_train_step
 
-    cfg = dict(UDEB4_MODEL, drop_rate=0.0, drop_connect_rate=0.0, feat_drop_rate=0.0)
+    spec = model_spec(model)
+    cfg = dict(spec["model"], drop_rate=0.0, drop_connect_rate=0.0, feat_drop_rate=0.0)
     # the frequency style branch: CORAL, the FFT amplitude mix, the most code
     draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 7), 2, 2, (4, 256, 256, 3))
     draws = StepDraws(flip=torch.tensor([True, False, False, True]),
                       perturb=dataclasses.replace(draws, style=True, freq=True))
-    model = build_model("UDEB4", cfg, dtype=torch.float32, v4_widths=v4_widths)
-    model.load_state_dict(weights, strict=True)
-    tx, _ = build_optimizer(UDEB4_CONFIG)
-    state = create_train_state(model, tx, device=device)
-    step = make_train_step(tx, UDEB4_CONFIG, NUM_STEPS, 2, 2,
+    net = build_model(model, cfg, dtype=torch.float32, v4_widths=v4_widths)
+    net.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(spec["config"])
+    state = create_train_state(net, tx, device=device)
+    step = make_train_step(tx, spec["config"], spec["num_steps"], 2, 2,
                            preprocess=DevicePipeline(hflip_p=0.5))
     _, metrics, _ = step(state, _train_batch(2, 2, 256, SEED + 8, device), None, draws)
     return ({k: float(v) for k, v in metrics.items()},
@@ -886,36 +970,43 @@ def _parity_step(weights: dict, device: str, v4_widths) -> tuple[dict, dict]:
              if p.grad is not None})
 
 
-def phase_train_parity(card: str, weights: dict) -> None:
-    """One deterministic two-pass step of UDEB4 at 256^2, 2 real + 2 fake,
+def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=None) -> None:
+    """One deterministic two-pass step of ``model`` at 256^2, 2 real + 2 fake,
     fp32 on the card against the same step on the CPU (default route, plain
     versions), from the same weights and draws: every loss, and each
     parameter's gradient (pass-1 plus pass-2, as update 2 applies it) by
-    the norm. The card runs it twice: on the default route (K1, K2, K2-bwd
-    in fp32, [train-parity]) and on the K3 route {32, 16} ([train-parity-v4])."""
+    the norm. The card runs it on each of ``routes`` ((tag, v4_widths)), by
+    default the default route (K1, K2, K2-bwd in fp32, [train-parity]) and
+    the K3 route {32, 16} ([train-parity-v4]), each checked for its launches
+    of K2, K2-bwd, K3 and K3-bwd."""
     import torch
 
+    if routes is None:
+        routes = (("train-parity", frozenset()), ("train-parity-v4", V4_WIDTHS[256]))
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        lc, gc = _parity_step(weights, "cpu", frozenset())
+        lc, gc = _parity_step(weights, "cpu", frozenset(), model)
         total = sum(v * v for v in gc.values()) ** 0.5
-        for tag, widths in (("train-parity", frozenset()), ("train-parity-v4", V4_WIDTHS[256])):
+        for tag, widths in routes:
             _reset_counts()
-            lg, gg = _parity_step(weights, "cuda", widths)
-            k3, k3_bwd = _route_counts()[3:]
-            per_k3 = per_forward_launches(256, widths)[1]
-            if (k3, k3_bwd) != (4 * per_k3, 2 * per_k3):
-                raise AssertionError(f"{tag}: K3, K3-bwd launches {(k3, k3_bwd)}")
-            loss_err = max(abs(lg[k] - v) / max(abs(v), 1e-12) for k, v in lc.items())
+            lg, gg = _parity_step(weights, "cuda", widths, model)
+            per_k2, per_k3 = per_forward_launches(model, 256, widths)
+            want = (4 * per_k2, 2 * per_k2, 4 * per_k3, 2 * per_k3)
+            if _route_counts()[1:] != want:
+                raise AssertionError(f"{tag}: K2, K2-bwd, K3, K3-bwd launches "
+                                     f"{_route_counts()[1:]}; expected {want}")
+            loss_err, loss_worst = max((abs(lg[k] - v) / max(abs(v), 1e-12), k)
+                                       for k, v in lc.items())
             # a tensor whose gradient is rounding noise (a BatchNorm bias feeding a
             # 1x1 conv and a train-mode BatchNorm, which cancels any shift) is
             # judged against the total norm, the rest against their own
             grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
-            log(f"[{tag}] UDEB4 256^2 b2+2 fp32 two-pass step, cuda (v4_widths {sorted(widths)}, "
-                f"K3 {k3} K3-bwd {k3_bwd}) vs cpu (default route): losses max rel err "
-                f"{loss_err:.3g} (tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 "
-                f"|all|) {grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
+            log(f"[{tag}] {model} 256^2 b2+2 fp32 two-pass step, cuda (v4_widths "
+                f"{sorted(widths)}, K2 {want[0]} K2-bwd {want[1]} K3 {want[2]} K3-bwd {want[3]}) "
+                f"vs cpu (default route): losses max rel err {loss_err:.3g} at {loss_worst} "
+                f"(tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
+                f"{grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
             if not (loss_err <= 1e-3 and grad_err <= 1e-2):
                 raise AssertionError(f"{tag}: losses {lc} vs {lg}; worst gradient {worst}")
     finally:
@@ -971,20 +1062,36 @@ def main() -> int:
     weights = seeded_weights(card)
     phase_serve(card, weights)  # asserts its own K1, K2 and K3 launch counts
     phase_parity(card, weights)
-    k1_launches, k2_launches, k2_bwd_launches, _, _ = phase_train(card, weights)
-    phase_serve(card, weights, V4_WIDTHS[380], "serve-v4")
-    phase_parity(card, weights, V4_WIDTHS[380], "parity-v4")
-    _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, V4_WIDTHS[380], "train-v4")
+    trained = {"train": phase_train(card, weights)}
+    phase_serve(card, weights, "UDEB4", V4_WIDTHS[380], "serve-v4")
+    phase_parity(card, weights, "UDEB4", V4_WIDTHS[380], "parity-v4")
+    _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, "UDEB4", V4_WIDTHS[380],
+                                                        "train-v4")
     phase_train_parity(card, weights)  # [train-parity] and [train-parity-v4]
+    for model in ("UDR18", "UDR50"):
+        tag = model.lower()
+        weights = seeded_weights(card, model)
+        phase_serve(card, weights, model, tag=f"serve-{tag}")
+        phase_parity(card, weights, model, tag=f"parity-{tag}")
+        trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
+        phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
     k4_launches, k4_bwd_launches = phase_bench(card)
+    # K1, K2 and K2-bwd: the launches of the default-route training paths,
+    # UDEB4's, UDR18's and UDR50's, 5 steps each
+    k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
+                                                 for i in range(3))
+    by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}
 
     def line(name, source, replaces, launches, measured):
+        key = name.split()[0]
+        paths = {p: c[key] for p, c in by_path.items() if key in c}
         return dict(name=name, route="cuda", source=f"unidefense_torch/csrc/{source}",
                     replaces=f"unidefense_tpu/ops/{replaces}", launches=launches,
                     max_abs_err=measured["max_abs_err"], ms=measured["ms"],
                     plain_ms=measured["plain_ms"], bound_ms=measured["bound_ms"],
                     bound_by=measured["bound_by"], library_ms=None,
-                    **{k: measured[k] for k in ("queued_ms", "warm_ms", "copy_ms") if k in measured})
+                    **{k: measured[k] for k in ("queued_ms", "warm_ms", "copy_ms") if k in measured},
+                    **({"launches_by_path": paths} if paths else {}))
 
     lines = [
         line("K1 normalize_flip", "normalize_flip.cu", "pallas_preprocess.py:42", k1_launches, k1),

@@ -244,14 +244,38 @@ def test_state_dict_bridge_matches_export_and_loads_udeb4():
     TorchUDEB4().load_state_dict(ours, strict=True)
 
 
-def test_registry_passes_keys_and_refuses_unported_models():
-    m = build_model("udeb4", {"extractor": "efficientnet-b0", "delimiter": B0_DELIMITER,
-                              "drop_connect_rate": 0.0, "feat_drop_rate": 0.0, "bias": False})
-    assert m.backbone.drop_connect_rate == 0.0 and m.feat_drop_rate == 0.0
-    assert m.delimiter == B0_DELIMITER
-    for name in ("UDR18", "UDR50"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            build_model(name, {})
+# every key a YAML `model:` section may carry, beside UDEB4's drop_connect_rate
+# and delimiter and UDR's mid_depth, which the other models do not take
+YAML_KEYS = {"name": "X", "extractor_weights": "ckpt/x.pth", "num_classes": 2, "drop_rate": 0.5,
+             "feat_drop_rate": 0.0, "drop_connect_rate": 0.0, "delimiter": B0_DELIMITER,
+             "bias": True}
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("udeb4", {"extractor": "efficientnet-b0"}),
+    ("UDR18", {"extractor": "resnet18", "mid_depth": 448}),
+    ("UDR50", {"extractor": "resnet50", "mid_depth": 1024}),
+    ("UDR101", {}),
+])
+def test_registry_passes_keys_and_refuses_unported_models(name, cfg):
+    """build_model passes each YAML key to the models whose constructor
+    takes it and drops the rest (the JAX registry filters by the model's
+    fields); a name it does not know raises."""
+    cfg = dict(YAML_KEYS, **cfg)
+    if name == "UDR101":
+        with pytest.raises(KeyError, match="not found"):
+            build_model(name, cfg)
+        return
+    m = build_model(name, cfg)
+    assert (m.drop_rate, m.feat_drop_rate) == (0.5, 0.0)
+    assert m.classifier.fc.bias is not None and m.freq_filter.layer1[0].bias is not None
+    if name == "udeb4":
+        assert m.backbone.drop_connect_rate == 0.0 and m.delimiter == B0_DELIMITER
+    else:
+        with pytest.raises(ValueError, match="mid_depth"):
+            build_model(name, dict(cfg, mid_depth=cfg["mid_depth"] + 1))
+        with pytest.raises(ValueError, match="extractor"):
+            build_model(name, dict(cfg, extractor="efficientnet-b4"))
 
 
 def test_predictor_matches_jax_eval_step_end_to_end():

@@ -4,8 +4,8 @@ bf16 weight sums (K2-bwd, K3-bwd, K4-bwd), which the CUDA kernels take from
 each tile loads or stores (K2's mirror operand and K3's o2 are
 double_reversal's rows) and the split-K ranges; and the signed blocks every
 mix adds. The kernels run only on the card; what they are told to do is
-checked here, at every SFConv shape of UDEB4 at 380² and 256² and of the
-per-op A/B tool."""
+checked here, at every SFConv shape of UDEB4, UDR18 and UDR50 at 380² and
+256² and of the per-op A/B tool."""
 
 import pytest
 import torch
@@ -15,10 +15,13 @@ from unidefense_torch.ops import sfconv_rowtiled as rt
 from unidefense_torch.ops.sfconv_spatial import (
     double_reversal, hilbert_row_matrix, sfconv_freq_blocks, sfconv_freq_spatial)
 
-# (H=W, C): UDEB4 at 380² and 256², then the A/B tool's 80²/C192 and 12²/C960
+# (H=W, C): UDEB4 at 380² and 256², the A/B tool's 80²/C192 and 12²/C960,
+# then those of UDR18 and UDR50 at 380² and 256² (C = 128, 256, 512)
 SHAPES = [(95, 192), (48, 336), (24, 672), (24, 960), (12, 1632),
           (64, 192), (32, 336), (16, 672), (16, 960), (8, 1632),
-          (80, 192), (12, 960)]
+          (80, 192), (12, 960),
+          (95, 128), (64, 128), (48, 128), (32, 128), (48, 256), (32, 256),
+          (24, 256), (16, 256), (24, 512), (16, 512), (12, 512), (8, 512)]
 BATCHES = [1, 20, 32]  # one frame, a training step (10 + 10), a serving batch
 _ids = [f"{hw}x{c}" for hw, c in SHAPES]
 

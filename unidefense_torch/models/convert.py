@@ -1,5 +1,5 @@
-"""JAX variables -> torch state_dict for the port's UDEB4
-(unidefense_tpu/models/convert.py:62-89,130-161,257-304).
+"""JAX variables -> torch state_dict for the port's UDEB4, UDR18 and UDR50
+(unidefense_tpu/models/convert.py:62-162,257-304).
 
 ``state_dict_from_jax`` takes the JAX model's ``{'params', 'batch_stats'}``
 tree as nested dicts of numpy arrays and returns a state_dict under the
@@ -24,6 +24,9 @@ _EFFNET_MODULES = ("expand_conv", "depthwise_conv", "project_conv", "se_reduce",
 _DEC_IDX = {"conv1": "0", "in1": "1", "deconv": "3", "in2": "4",
             "conv2": "6", "in3": "7", "conv_out": "9"}
 _FILTER_IDX = {"proj": "layer1.0", "proj_norm": "layer1.1", "mask_conv": "layer2.0"}
+# the ResNet blocks' and the embedders' shortcut
+_DOWNSAMPLE = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+               "down_conv": "downsample.0", "down_norm": "downsample.1"}
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> Iterator[tuple[tuple, np.ndarray]]:
@@ -49,13 +52,35 @@ def _efficientnet_key(parts: list) -> str:
     return ".".join(out + [_LEAF[parts[-1]]])
 
 
+def _resnet_key(parts: list) -> str:
+    """ResNet path (under the extractor's ``net``, which has no torch
+    level) -> torchvision/timm key: ``layerL.B.convK``, ``downsample.0/1``."""
+    out = []
+    for m in parts[:-1]:
+        bm = re.fullmatch(r"block(\d+)", m)
+        if bm:
+            out.append(bm.group(1))
+        elif m in _DOWNSAMPLE:
+            out.append(_DOWNSAMPLE[m])
+        elif re.fullmatch(r"(conv|bn|layer)\d|fc|freq_conv", m):
+            out.append(m)
+        elif m != "net":
+            raise KeyError(f"unmapped ResNet module '{m}' in {parts}")
+    return ".".join(out + [_LEAF[parts[-1]]])
+
+
 def torch_key(path: tuple) -> str:
-    """JAX variable path -> reference UDEB4 state_dict key."""
+    """JAX variable path -> reference UniDefense state_dict key (UDEB4,
+    UDR18, UDR50)."""
     parts = [p for p in path if p not in ("Conv_0", "Dense_0")]
     leaf, mods = parts[-1], parts[:-1]
     head = mods[0] if mods else None
     if head == "backbone":
         return "backbone." + _efficientnet_key(parts[1:])
+    if head == "extractor":
+        return "extractor." + _resnet_key(parts[1:])
+    if head is not None and head.startswith("emb_block"):
+        return ".".join([head, *(_DOWNSAMPLE.get(m, m) for m in mods[1:]), _LEAF[leaf]])
     if head is not None and head.startswith("dec_block"):
         return f"{head}.{_DEC_IDX[mods[1]]}.{_LEAF[leaf]}"
     if head == "bottleneck":
@@ -66,7 +91,7 @@ def torch_key(path: tuple) -> str:
         if leaf == "fuse_coef":
             return "fuse_coef"
         return f"{mods[1]}.{_FILTER_IDX[mods[2]]}.{_LEAF[leaf]}"
-    raise KeyError(f"unmapped UniDefense path {path} (only UDEB4 is ported)")
+    raise KeyError(f"unmapped UniDefense path {path}")
 
 
 def _layout(path: tuple, v: np.ndarray) -> np.ndarray:
@@ -82,7 +107,7 @@ def _layout(path: tuple, v: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX {'params', 'batch_stats'} of UniDefenseModelEb4 -> torch
+    """JAX {'params', 'batch_stats'} of a UniDefense model -> torch
     state_dict, including each BatchNorm's zero ``num_batches_tracked`` and
     the bottleneck's frozen zero bias."""
     sd: dict[str, torch.Tensor] = {}

@@ -215,3 +215,38 @@ class ConvTranspose(nn.ConvTranspose2d):
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
                                   self.padding, self.output_padding)
+
+
+class CDConv(Conv):
+    """Central-difference convolution (layers.py:317-363):
+    conv(x, W) - theta * conv(x, sum_kk(W) as a 1x1 kernel), the bias added
+    to both convs as the reference's torch module adds it. No shipped model
+    calls it; the JAX package defines it for API parity."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: Padding = 0, theta: float = 0.7, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, bias=bias, dtype=dtype)
+        self.theta = theta
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = super().forward(x)
+        if abs(self.theta) < 1e-8:
+            return out
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        diff = self.weight.sum(dim=(2, 3), keepdim=True).to(dt)
+        return out - self.theta * F.conv2d(x.to(dt), diff, bias, self.stride)
+
+
+def conv_or_sfconv(use_sf: bool, in_ch: int, out_ch: int, kernel_size: int, stride: int,
+                   padding: Padding, bias: bool = False, dtype: Optional[torch.dtype] = None,
+                   v4_widths: Iterable[int] = ()) -> Conv:
+    """An SFConv where the ResNet gate allows one (its in and out channels
+    match), else a plain Conv (layers.py:366-372)."""
+    if use_sf:
+        if in_ch != out_ch:
+            raise ValueError(f"an SFConv maps C to C channels, not {in_ch} to {out_ch}")
+        return SFConv(out_ch, kernel_size, stride, padding, bias=bias, dtype=dtype,
+                      v4_widths=v4_widths)
+    return Conv(in_ch, out_ch, kernel_size, stride, padding, bias=bias, dtype=dtype)

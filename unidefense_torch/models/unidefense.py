@@ -1,11 +1,11 @@
-"""UniDefense with EfficientNet (UDEB4)
-(unidefense_tpu/models/unidefense.py:51-208).
+"""The UniDefense dual-space models: UDEB4 with EfficientNet, UDR18 and
+UDR50 with ResNet extractors (unidefense_tpu/models/unidefense.py:51-369).
 
-Encoder backbone -> spatial decoder reconstructing the input -> dual-space
-attention re-weighting of a mid-level embedding -> remaining blocks ->
-frozen-bias BN bottleneck -> linear classifier; the reconstruction losses
-(pixel and rFFT space) are computed in the forward pass. Tensors are NCHW in
-channels_last; ``rec`` and the masks come back NCHW.
+Encoder -> spatial decoder reconstructing the input -> dual-space attention
+re-weighting of a mid-level embedding -> remaining blocks -> frozen-bias BN
+bottleneck -> linear classifier; the reconstruction losses (pixel and rFFT
+space) are computed in the forward pass. Tensors are NCHW in channels_last;
+``rec`` and the masks come back NCHW.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ from unidefense_torch.models.efficientnet import EfficientNet
 from unidefense_torch.models.filters import DynamicFilter, dual_space_attention
 from unidefense_torch.models.layers import (
     BatchNorm, Classifier, Conv, ConvTranspose, InstanceNorm, dropout)
+from unidefense_torch.models.resnet import (
+    EmbedderRes18Layer1, EmbedderRes18Layer2, EmbedderRes50Layer1, EmbedderRes50Layer2,
+    ExtractorRes18, ExtractorRes50)
 from unidefense_torch.ops.fft import spectrum_channels
 from unidefense_torch.ops.resize import bilinear_resize
 
@@ -154,3 +157,132 @@ class UniDefenseModelEb4(nn.Module):
         loss_dict["spatial"] = spatial
         loss_dict["freq"] = freq
         return {"cls_out": cls_out, "rec": nchw(rec), "loss_dict": loss_dict}
+
+
+class _UniDefenseResNet(nn.Module):
+    """The part UDR18 and UDR50 share (unidefense.py:211-369): ResNet
+    extractor -> ReLU decoders on the (dropped-out) extractor features;
+    embedder layer 1 -> dual-space attention (ReLU filters) -> embedder
+    layer 2 -> global pool -> frozen-bias BN bottleneck -> dropout ->
+    classifier. ``triplet`` holds the pooled extractor features and the
+    first decoder's output. Same ``forward`` contract as
+    :class:`UniDefenseModelEb4`. ``extractor`` and ``mid_depth`` are the
+    JAX fields; each must name what the subclass builds."""
+
+    ARCH: str
+    MID_DEPTH: int  # extractor channels, the decoder's input
+    EMB_DEPTH: int  # embedding channels
+    DEC_FEATURES: tuple  # decoder widths; the last decoder narrows to 32 and adds the head
+
+    def __init__(self, extractor: str, mid_depth: int, num_classes: int, drop_rate: float,
+                 feat_drop_rate: float, use_bias: bool, affine: bool, freq_norm: str,
+                 dtype: Optional[torch.dtype], v4_widths: Iterable[int]):
+        super().__init__()
+        name = type(self).__name__
+        if extractor != self.ARCH:
+            raise ValueError(f"{name} takes extractor '{self.ARCH}', not '{extractor}'")
+        if mid_depth != self.MID_DEPTH:
+            raise ValueError(f"{name}: the {self.ARCH} extractor gives {self.MID_DEPTH} "
+                             f"channels, not mid_depth {mid_depth}")
+        self.freq_norm = freq_norm
+        self.compute_dtype = dtype
+        self.drop_rate = drop_rate
+        self.feat_drop_rate = feat_drop_rate
+        self.build_blocks(freq_norm, use_bias, dtype, v4_widths)
+        kw = dict(bias=use_bias, affine=affine, use_swish=False, dtype=dtype)
+        widths = (mid_depth, *self.DEC_FEATURES)
+        for i, (c_in, c_out) in enumerate(zip(widths[:-1], widths[1:])):
+            last = i == len(self.DEC_FEATURES) - 1
+            block = DecoderBlock(c_in, c_out, 32 if last else None, final=last, **kw)
+            self.add_module(f"dec_block{i + 1}", block)
+        emb = self.EMB_DEPTH
+        self.freq_filter = DynamicFilter(2 * emb, 6, 1, F.relu, use_bias, dtype)
+        self.spat_filter = DynamicFilter(emb, 3, 3, F.relu, use_bias, dtype)
+        self.fuse_coef = nn.Parameter(torch.tensor(0.0))
+        self.bottleneck = BatchNorm(emb, frozen_bias=True, dtype=dtype)
+        self.classifier = Classifier(emb, num_classes, dtype)
+
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+        """Register ``extractor``, ``emb_block1`` and ``emb_block2``."""
+        raise NotImplementedError
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The extractor features the decoders and the embedders take."""
+        return self.extractor(x)
+
+    def forward(self, x: torch.Tensor, noise_x: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        if noise_x is None:
+            noise_x = x
+        g = generator
+        ext_feat = self.features(noise_x)
+        dec = [dropout(ext_feat, self.feat_drop_rate, self.training, g)]
+        for i in range(len(self.DEC_FEATURES)):
+            dec.append(getattr(self, f"dec_block{i + 1}")(dec[-1]))
+
+        emb = self.emb_block1(ext_feat)
+        att = dual_space_attention(self.freq_filter, self.spat_filter, self.fuse_coef,
+                                   dec[-1].detach(), x, emb, self.freq_norm, self.compute_dtype,
+                                   self.drop_rate, self.training, g)
+        emb = self.emb_block2(att["out"])
+        emb = self.bottleneck(emb.mean(dim=(2, 3)))
+        factorization = emb
+        emb = dropout(emb, self.drop_rate, self.training, g)
+
+        loss_dict = {
+            "factorization": factorization,
+            "triplet": [ext_feat.mean(dim=(2, 3)), dec[1].mean(dim=(2, 3))],
+            "freq_mask": att["freq_mask"],
+            "spat_mask": att["spat_mask"],
+        }
+        cls_out = self.classifier(emb)
+        rec, spatial, freq = _recon_losses(nhwc(dec[-1]), nhwc(x), self.freq_norm)
+        loss_dict["spatial"] = spatial
+        loss_dict["freq"] = freq
+        return {"cls_out": cls_out, "rec": nchw(rec), "loss_dict": loss_dict}
+
+
+class UniDefenseModelRes18(_UniDefenseResNet):
+    """UniDefense with the ResNet-18 multi-scale extractor
+    (unidefense.py:211-288): 448 extractor channels, decoders 448 -> 128 ->
+    64/32 -> 3, a 512-channel embedding. ``v4_widths``: the SFConv widths
+    routed to K3 (see ``layers.SFConv``; default none)."""
+
+    ARCH, MID_DEPTH, EMB_DEPTH, DEC_FEATURES = "resnet18", 448, 512, (128, 64)
+
+    def __init__(self, extractor: str = "resnet18", mid_depth: int = 448, num_classes: int = 2,
+                 drop_rate: float = 0.2, feat_drop_rate: float = 0.2, use_bias: bool = False,
+                 affine: bool = True, freq_norm: str = "ortho",
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
+        super().__init__(extractor, mid_depth, num_classes, drop_rate, feat_drop_rate, use_bias,
+                         affine, freq_norm, dtype, v4_widths)
+
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+        kw = dict(dtype=dtype, v4_widths=v4_widths)
+        self.extractor = ExtractorRes18(freq_norm, **kw)
+        self.emb_block1 = EmbedderRes18Layer1(self.MID_DEPTH, use_bias, **kw)
+        self.emb_block2 = EmbedderRes18Layer2(use_bias, **kw)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.extractor(x)[1]
+
+
+class UniDefenseModelRes50(_UniDefenseResNet):
+    """UniDefense with the ResNet-50 extractor (unidefense.py:291-369): 1024
+    extractor channels, decoders 1024 -> 256 -> 128 -> 64/32 -> 3, a
+    2048-channel embedding. ``v4_widths``: as for UDR18."""
+
+    ARCH, MID_DEPTH, EMB_DEPTH, DEC_FEATURES = "resnet50", 1024, 2048, (256, 128, 64)
+
+    def __init__(self, extractor: str = "resnet50", mid_depth: int = 1024, num_classes: int = 2,
+                 drop_rate: float = 0.2, feat_drop_rate: float = 0.2, use_bias: bool = False,
+                 affine: bool = True, freq_norm: str = "ortho",
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
+        super().__init__(extractor, mid_depth, num_classes, drop_rate, feat_drop_rate, use_bias,
+                         affine, freq_norm, dtype, v4_widths)
+
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+        kw = dict(dtype=dtype, v4_widths=v4_widths)
+        self.extractor = ExtractorRes50(freq_norm, **kw)
+        self.emb_block1 = EmbedderRes50Layer1(self.MID_DEPTH, use_bias, **kw)
+        self.emb_block2 = EmbedderRes50Layer2(use_bias, **kw)

@@ -32,18 +32,30 @@ def _flatten_mean_std(feat: torch.Tensor):
     return f, f.mean(dim=-1, keepdim=True), f.std(dim=-1, keepdim=True)
 
 
+def _cov(norm: torch.Tensor) -> torch.Tensor:
+    """norm @ normᵀ + I, (N, 3, HW) -> (N, 3, 3) in norm's dtype, the
+    products summed in float64. Summed in fp32, a product this long (K =
+    H·W) comes out of cuBLAS about 1e2 further from the exact sum than on
+    the CPU (6.0e-5 of its largest entry against 4.8e-7 at 256^2; NVIDIA
+    H100 80GB HBM3, 700 W; ``tools/train_parity_probe``), and CORAL
+    amplifies the error: its quirky sqrt depends on the eigenvectors, and
+    noise-like images have eigenvalues within 2% of each other."""
+    n = norm.double()
+    eye = torch.eye(3, dtype=norm.dtype, device=norm.device)
+    return (n @ n.transpose(1, 2)).to(norm.dtype) + eye
+
+
 def coral(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """CORAL transfer of each source image onto the colour statistics of
-    the target image of the same index; NHWC, computed in fp32, returned in
-    source's dtype."""
+    the target image of the same index; NHWC, computed in fp32 (the
+    covariances summed in float64), returned in source's dtype."""
     dtype = source.dtype
-    eye = torch.eye(3, dtype=torch.float32, device=source.device)
     sf, sm, ss = _flatten_mean_std(source.float())
     s_norm = (sf - sm) / ss
-    s_cov = s_norm @ s_norm.transpose(1, 2) + eye
+    s_cov = _cov(s_norm)
     tf, tm, ts = _flatten_mean_std(target.float())
     t_norm = (tf - tm) / ts
-    t_cov = t_norm @ t_norm.transpose(1, 2) + eye
+    t_cov = _cov(t_norm)
     transfer = _mat_sqrt(t_cov) @ (_mat_inv_sqrt(s_cov) @ s_norm)
     out = transfer * ts + tm
     return out.transpose(1, 2).reshape(source.shape).to(dtype)

@@ -1,8 +1,9 @@
-"""Resize / pooling on NHWC tensors (unidefense_tpu/ops/resize.py:67-98).
+"""Resize / pooling on NHWC tensors (unidefense_tpu/ops/resize.py:67-110).
 
 torch's own operators carry the reference semantics directly
-(``F.interpolate(bilinear, align_corners=True)``, ``F.adaptive_avg_pool2d``),
-so the JAX package's separable interpolation matrices are not needed.
+(``F.interpolate(bilinear, align_corners=True)``, ``F.adaptive_avg_pool2d``,
+``F.max_pool2d``), so the JAX package's separable interpolation matrices are
+not needed.
 """
 
 from __future__ import annotations
@@ -44,3 +45,9 @@ def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     cols = np.floor(np.arange(out_w) * (w / out_w)).astype(np.int64)
     x = x.index_select(1, torch.from_numpy(rows).to(x.device))
     return x.index_select(2, torch.from_numpy(cols).to(x.device))
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
+    """NHWC max pool with symmetric padding that never wins (torch
+    nn.MaxPool2d, the JAX version's -inf padding)."""
+    return nhwc(F.max_pool2d(nchw(x), kernel, stride, padding))

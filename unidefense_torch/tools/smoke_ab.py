@@ -24,11 +24,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 _PATTERNS = {
-    "kernel": re.compile(r"^\[(K\d(?:-bwd)?)\] per .*?kernel ([\d.]+) ms.*?bound ([\d.]+) ms"),
+    # a kernel summed over a workload: per UDEB4, UDR18 or UDR50 pass, or per A/B pass
+    "kernel": re.compile(r"^\[(K\d(?:-bwd)?)\] (per .*?) \(\d+ launches\): kernel ([\d.]+) ms"),
     # K1 per batch: warm back to back (every tree), cold (trees that time it)
     "k1": re.compile(r"^\[K1\] (\d+x\d+x\d+)x3 -> torch\.(\w+).*?(?:kernel|warm) ([\d.]+) ms"),
     "k1_cold": re.compile(r"^\[K1\] (\d+x\d+x\d+)x3 -> torch\.(\w+).*?kernel cold ([\d.]+) ms"),
-    "rate": re.compile(r"^\[(serve|train|serve-v4|train-v4)\] .*?([\d.]+) img/s"),
+    "rate": re.compile(r"^\[((?:serve|train)(?:-v4|-udr18|-udr50)?)\] .*?([\d.]+) img/s"),
     "profile": re.compile(r"^\[profile\] (.*?): wall ([\d.]+) ms, device busy ([\d.]+) ms "
                           r"\(busy share ([\d.]+)\)"),
 }
@@ -39,7 +40,7 @@ def summarise(text: str) -> dict:
     got: dict = {}
     for line in text.splitlines():
         if m := _PATTERNS["kernel"].match(line):
-            got[f"{m[1]} ms"] = float(m[2])
+            got[f"{m[1]} {m[2]} ms"] = float(m[3])
         elif m := _PATTERNS["k1"].match(line):
             got[f"K1 {m[1]} {m[2]} warm ms"] = float(m[3])
             if c := _PATTERNS["k1_cold"].match(line):
