@@ -27,8 +27,14 @@ take the SFConv widths listed; the same four paths on the default route for
 UDR18 at 256x256 (config_template/ocim/model_udr18.yml) and UDR50 at
 380x380 (config_template/uniatt/Prot1/model_udr50.yml), tagged
 ``-udr18`` and ``-udr50``; and the per-op A/B tool
-``unidefense_torch.tools.bench_sfconv``, the path of K4 and K4-bwd. Any
-failure raises, so the exit code is not 0 and no result line is printed.
+``unidefense_torch.tools.bench_sfconv``, the path of K4 and K4-bwd; and
+the FE engine behind ``python -m unidefense_torch.main`` (``[engine-fe]``):
+UDEB4 at 380x380, 10 real + 10 fake, bf16, trained 6 steps with validation,
+tested from its best checkpoint and resumed to step 9, on a synthetic FF++
+tree of JPEG frames written and decoded by the port's host JPEG library,
+checking every train step's and eval batch's launches of K1, K2 and
+K2-bwd. Any failure raises, so the exit code is not 0 and no result line is
+printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -855,6 +861,9 @@ def _groups_of(model) -> dict:
     return groups
 
 
+TRAIN_RATES: dict = {}  # img/s of each [train*] phase of this run
+
+
 def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
     import numpy as np
     import torch
@@ -923,6 +932,7 @@ def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
         raise AssertionError(f"parameter groups that did not move: {frozen}")
     still = sum(m.count(False) for m in moved.values())
     ms = statistics.median(times) * 1e3
+    TRAIN_RATES[tag] = 100 / sum(times)
     route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
     opt = spec["config"]["optimizer"]
     log(f"[{tag}] {model} {res}^2 b10+10 bf16 two-pass step ({route}), {opt['name']} amsgrad "
@@ -1013,6 +1023,240 @@ def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=No
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+# the synthetic FF++ tree of [engine-fe]: 4 real and 4 fake videos of 8
+# frames of seeded noise at 320^2, the frame layout of the reference's index
+FFPP_FRAMES = {0: "original_sequences/youtube/c23/images/{v:03d}/{f:04d}.jpg",
+               1: "manipulated_sequences/Deepfakes/c23/images/{v:03d}_x/{f:04d}.jpg"}
+
+
+def _write_ffpp(root: str, card: str, videos: int = 4, frames: int = 8, size: int = 320) -> None:
+    """Encode the tree with the port's JPEG encoder and write the split
+    pickles; check the port's encoder and decoder on a smooth frame's round
+    trip, and hold its decode of a noise frame against libjpeg-turbo's
+    (Pillow) where Pillow is installed."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.data import native
+
+    rng = np.random.default_rng(SEED + 20)
+    index, first = [], None
+    for label, pattern in FFPP_FRAMES.items():
+        for v in range(videos):
+            for f in range(frames):
+                rel = pattern.format(v=v, f=f)
+                frame = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                blob = native.encode_jpeg(frame, 95)
+                os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+                with open(os.path.join(root, rel), "wb") as out:
+                    out.write(blob)
+                index.append((rel, label))
+                first = first or (frame, blob)
+    os.makedirs(os.path.join(root, "pickle_files"))
+    for split in ("train", "val", "test"):
+        torch.save(index, os.path.join(root, "pickle_files", f"{split}_c23.pickle"))
+    yy, xx = np.mgrid[0:size, 0:size]
+    smooth = np.stack([xx * 0.7, yy * 0.6, (xx + yy) * 0.35], -1).astype(np.uint8)
+    back = native.decode_batch([native.encode_jpeg(smooth, 95)], None, size, size)[0]
+    err = float(np.abs(back.astype(np.int32) - smooth).mean())
+    if not err < 2.0:
+        raise AssertionError(f"a smooth frame comes back {err} levels off on average")
+    frame, blob = first
+    note = "Pillow not installed: no libjpeg-turbo reference"
+    try:
+        import io
+
+        from PIL import Image
+
+        got = native.decode_batch([blob], None, size, size)[0].astype(np.int32)
+        ref = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB")).astype(np.int32)
+        diff = np.abs(got - ref)
+        note = (f"a noise frame against libjpeg-turbo's decode (Pillow): max |d| "
+                f"{int(diff.max())}, mean {float(diff.mean()):.4f} (tol 4 and 0.1), "
+                f"{float((diff > 1).mean()):.2e} of values more than 1 apart")
+    except ImportError:
+        diff = np.zeros(1)
+    if not (diff.max() <= 4 and diff.mean() <= 0.1):
+        raise AssertionError(f"the port's decode is off libjpeg-turbo's: {note}")
+    log(f"[jpeg] {native.backend()}: {len(index)} noise frames {size}^2 q95 written by the "
+        f"port's encoder ({len(blob)} bytes the first); a smooth frame's round trip "
+        f"{err:.3f} levels from its source on average; {note}; {card}")
+
+
+def _engine_configs(root: str, tree: str, run_id: str) -> tuple[str, str]:
+    """config_template/forgery/model_udeb4.yml and data_ffc23.yml with the
+    tree as root, one fake method, 6 steps logged and validated every 3, a
+    fresh id; and the same with resume on and 9 steps."""
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, MODELS["UDEB4"][0])) as f:
+        model = yaml.safe_load(f)
+    with open(os.path.join(repo, model["data"]["file"])) as f:
+        data = yaml.safe_load(f)
+    paths = []
+    for steps, resume in ((6, False), (9, True)):
+        data.update(root=tree, fake_method=["Deepfakes"], num_steps=steps, log_steps=3,
+                    val_steps=3)
+        data_path = os.path.join(root, f"data_{steps}.yml")
+        with open(data_path, "w") as f:
+            yaml.safe_dump(data, f)
+        model["data"]["file"] = data_path
+        model["config"].update(id=run_id, resume=resume)
+        model_path = os.path.join(root, f"model_{steps}.yml")
+        with open(model_path, "w") as f:
+            yaml.safe_dump(model, f)
+        paths.append(model_path)
+    return tuple(paths)
+
+
+def phase_engine_fe(card: str) -> tuple:
+    """``python -m unidefense_torch.main --engine FE`` in process: UDEB4 at
+    380^2, b10+10, bf16, AdamW amsgrad, StepLR (model_udeb4.yml,
+    data_ffc23.yml) on a synthetic FF++ tree. Trains 6 steps (validation at
+    3 and 6), tests from the best checkpoint, resumes to step 9. Checks the
+    device, the printed lines, the checkpoints, the resume, and every train
+    step's launches of K1, K2 and K2-bwd (1, 96, 48) and every eval batch's
+    (1, 24); each run's launch totals are read around its main() call.
+    Returns the launch totals over the three runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unidefense_torch import main as cli
+    from unidefense_torch.data.datasets import FaceForensics
+    from unidefense_torch.engines import base
+
+    per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
+    step_want = (1, 4 * per_k2, 2 * per_k2, 0, 0)
+    eval_want = (1, per_k2, 0, 0, 0)
+    steps: list = []  # (count deltas, start, end) of every train step
+    loads: list = []  # (frames, seconds) of every load_item
+    evals: list = []  # (batches, seconds) of every score_dataset
+    make_train_step, load_item, score_dataset = (
+        base.make_train_step, FaceForensics.load_item, base.AbstractEngine.score_dataset)
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(state, batch, generator=None, draws=None):
+            torch.cuda.synchronize()
+            before, t0 = _route_counts(), time.perf_counter()
+            out = step(state, batch, generator, draws)
+            torch.cuda.synchronize()
+            steps.append((tuple(b - a for a, b in zip(before, _route_counts())), t0,
+                          time.perf_counter()))
+            return out
+        return timed
+
+    def timed_load_item(self, items, labels, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = load_item(self, items, labels, *args, **kwargs)
+        loads.append((len(items), time.perf_counter() - t0))
+        return out
+
+    def timed_score_dataset(self, dataset, batch_size, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = score_dataset(self, dataset, batch_size, *args, **kwargs)
+        torch.cuda.synchronize()
+        evals.append((-(-len(dataset) // batch_size), time.perf_counter() - t0))
+        return out
+
+    cwd, stdout = os.getcwd(), sys.stdout
+    root = tempfile.mkdtemp(prefix="ud_engine_fe_")
+    totals = (0,) * 5
+    try:
+        tree = os.path.join(root, "ffpp")
+        _write_ffpp(tree, card)
+        first, resumed = _engine_configs(root, tree, f"chip-smoke-{os.getpid()}")
+        os.chdir(root)  # runs/ lands in the temporary directory
+        base.make_train_step = timed_make_train_step
+        FaceForensics.load_item = timed_load_item
+        base.AbstractEngine.score_dataset = timed_score_dataset
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for argv in (["--config", first, "--engine", "FE", "--offline"],
+                     ["--config", first, "--engine", "FE", "--offline", "--test"],
+                     ["--config", resumed, "--engine", "FE", "--offline"]):
+            n_steps, n_evals = len(steps), len(evals)
+            _reset_counts()
+            t0 = time.perf_counter()
+            engine = cli.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = _route_counts()
+            sys.stdout = stdout
+            new_steps = steps[n_steps:]
+            batches = sum(b for b, _ in evals[n_evals:])
+            want = tuple(len(new_steps) * s + batches * e for s, e in zip(step_want, eval_want))
+            bad = [i for i, (d, _, _) in enumerate(new_steps) if d != step_want]
+            if got != want or bad:
+                raise AssertionError(f"[engine-fe] {argv[-1]}: launches K1, K2, K2-bwd, K3, "
+                                     f"K3-bwd = {got} over {len(new_steps)} steps and {batches} "
+                                     f"eval batches, expected {want}; steps off {bad}")
+            if engine.device.type != "cuda":
+                raise AssertionError(f"[engine-fe] ran on {engine.device}")
+            totals = tuple(a + b for a, b in zip(totals, got))
+            runs.append((engine, seconds, len(new_steps), batches))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trained, tested, again = (r[0] for r in runs)
+        run_dir = os.path.join(root, trained.run_dir)
+        for name in ("best", "latest"):
+            if not os.path.isdir(os.path.join(run_dir, "ckpt", name)):
+                raise AssertionError(f"[engine-fe] no ckpt/{name} in {run_dir}")
+        with open(os.path.join(run_dir, "records.txt")) as f:
+            records = f.read()
+        with open(os.path.join(run_dir, "test.txt")) as f:
+            test_out = f.read()
+        iters = [ln for ln in records.splitlines() if ln.startswith("Train Iter")]
+        losses = [float(ln.split("Loss ")[1].split(",")[0]) for ln in iters]
+        aucs = [float(ln.split("AUC ")[1].split(",")[0]) for ln in
+                records.splitlines() + test_out.splitlines()
+                if ln.startswith(("Eval Step", "Test |"))]
+        if not (len(iters) == 3 and all(np.isfinite(losses))):
+            raise AssertionError(f"[engine-fe] Train Iter lines {iters}")
+        if not (len(aucs) == 4 and all(0.0 <= a <= 1.0 for a in aucs)):
+            raise AssertionError(f"[engine-fe] Eval Step / Test lines give AUC {aucs}")
+        if "Resumed from step 6" not in records or again.state.step != 9 or \
+                trained.state.step != 6:
+            raise AssertionError(f"[engine-fe] resume: steps {trained.state.step}, "
+                                 f"{again.state.step}")
+        # steady state: steps 2-6 of the first run; the loop's own time from
+        # one step's start to the next's, where no validation lies between
+        first_steps = steps[:6]
+        step_ms = [(t1 - t0) * 1e3 for _, t0, t1 in first_steps[1:]]
+        loop_ms = [(b[1] - a[1]) * 1e3 for i, (a, b) in
+                   enumerate(zip(first_steps[1:], first_steps[2:]), start=2) if i % 3]
+        bs = trained.data_cfg["train_batch_size"]
+        train_loads = [s * 1e3 for n, s in loads if n == bs]
+        val_ms = [s * 1e3 / b for b, s in evals]
+        log(f"[engine-fe] python -m unidefense_torch.main --engine FE: UDEB4 380^2 b10+10 bf16 "
+            f"on {trained.device}, {trained.state.step} steps + test + resume to "
+            f"{again.state.step}: steps 2-6 {2 * bs * len(step_ms) / (sum(step_ms) / 1e3):.2f} "
+            f"img/s, "
+            f"p50 {statistics.median(step_ms):.2f} ms per step ({[round(t, 2) for t in step_ms]}; "
+            f"loop {[round(t, 2) for t in loop_ms]} ms between step starts) beside [train] "
+            f"{TRAIN_RATES.get('train', float('nan')):.2f} img/s for the bare step; host decode "
+            f"p50 {statistics.median(train_loads):.2f} ms per {bs}-frame batch (320^2 -> 380^2, "
+            f"{len(train_loads)} batches); validation {[round(v, 2) for v in val_ms]} ms per "
+            f"b64/b96 batch with its decode; peak memory {peak:.3f} GiB; runs "
+            f"{[round(r[1], 2) for r in runs]} s; {card}")
+        log(f"[engine-fe] launches per train step K1 {step_want[0]} K2 {step_want[1]} K2-bwd "
+            f"{step_want[2]} and per eval batch K1 1 K2 {per_k2} over {len(steps)} steps and "
+            f"{sum(b for b, _ in evals)} eval batches (totals {totals}); losses {losses}; AUC "
+            f"{aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; {card}")
+    finally:
+        base.make_train_step, FaceForensics.load_item = make_train_step, load_item
+        base.AbstractEngine.score_dataset = score_dataset
+        sys.stdout = stdout
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return totals
+
+
 def phase_bench(card: str) -> tuple[int, int]:
     """The per-op A/B tool (path B) at its default shapes, batch 20, bf16,
     2 timed calls per column: checks that K4 ran its forward and x_bar and
@@ -1068,6 +1312,7 @@ def main() -> int:
     _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, "UDEB4", V4_WIDTHS[380],
                                                         "train-v4")
     phase_train_parity(card, weights)  # [train-parity] and [train-parity-v4]
+    trained["engine-fe"] = phase_engine_fe(card)
     for model in ("UDR18", "UDR50"):
         tag = model.lower()
         weights = seeded_weights(card, model)
@@ -1077,7 +1322,8 @@ def main() -> int:
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
-    # UDEB4's, UDR18's and UDR50's, 5 steps each
+    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the FE engine's
+    # three runs (their steps and eval batches)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))
     by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}

@@ -44,6 +44,37 @@ def test_predictor_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
                                       "delimiter": [1, 3, 5, 8, 11, 15, 16]})
 
 
+def _fe_config(tmp_path):
+    """A minimal FE config: model YAML and data YAML on disk."""
+    import yaml
+
+    data = tmp_path / "data.yml"
+    data.write_text(yaml.safe_dump({"root": str(tmp_path), "name": "FFpp", "num_steps": 1}))
+    model = tmp_path / "model.yml"
+    model.write_text(yaml.safe_dump({"model": {"name": "UDR18"}, "config": {"id": "x"},
+                                     "data": {"train_batch_size": 1, "file": str(data)}}))
+    return str(model)
+
+
+@pytest.mark.parametrize("entry", ["engine", "main"])
+def test_engine_and_main_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_path, entry):
+    """The FE engine's constructor (device=None) and the CLI refuse to run
+    without a card, before they read a dataset or write a run directory."""
+    from unidefense_torch.config import load_config
+    from unidefense_torch.engines import get_engine
+    from unidefense_torch.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    cfg = _fe_config(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "engine":
+            get_engine("FE")(load_config(cfg, engine="FE"), stage="Train")
+        else:
+            main(["--config", cfg, "--engine", "FE", "--offline"])
+    assert not (tmp_path / "runs").exists()
+
+
 def test_dispatch_rule():
     assert _build.uses_kernel(torch.zeros(1)) is False
     with pytest.raises(ValueError):

@@ -13,9 +13,8 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from unidefense_torch.data.transforms import DevicePipeline
+from unidefense_torch.data.transforms import DevicePipeline, resize_bilinear
 from unidefense_torch.device import DeviceLike, resolve_device
 from unidefense_torch.models.convert import state_dict_from_jax
 from unidefense_torch.models.registry import build_model
@@ -23,12 +22,9 @@ from unidefense_torch.train.step import make_eval_step
 
 
 def resize_frames(frames_u8: np.ndarray, size: int) -> np.ndarray:
-    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8: bilinear with
-    half-pixel centres (align_corners=False), rounded and clamped. Within
-    one intensity level of ``cv2.resize``'s INTER_LINEAR, with no cv2."""
-    x = torch.from_numpy(np.ascontiguousarray(frames_u8)).permute(0, 3, 1, 2).float()
-    y = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
-    return y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
+    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8 (``resize_bilinear``):
+    within one intensity level of ``cv2.resize``'s INTER_LINEAR."""
+    return resize_bilinear(frames_u8, size, size)
 
 
 class Predictor:

@@ -9,6 +9,9 @@ compiling. Nothing here runs at import: the CPU test machine has no ``nvcc``.
 Every C entry point takes device pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` after its launch; :func:`check` raises if
 that is not 0.
+
+The host JPEG library (``csrc/host_jpeg.cc``, no device code) is built the
+same way by ``g++``, see :func:`host_library`.
 """
 
 from __future__ import annotations
@@ -125,3 +128,54 @@ def uses_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# ------------------------------------------------------------ host library
+
+HOST_SRC = SRC_DIR / "host_jpeg.cc"
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+_host: dict[str, ctypes.CDLL] = {}
+
+
+def _cuda_home() -> str:
+    return os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+
+
+def jpeg_backend() -> tuple[str, tuple[str, ...]]:
+    """(backend, g++ flags) of the host JPEG library: libjpeg where g++
+    finds ``jpeglib.h``, else nvJPEG from the CUDA toolkit. Raises where
+    there is neither."""
+    probe = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+                           capture_output=True, text=True)
+    if probe.returncode == 0:
+        return "libjpeg", ("-DUD_JPEG_LIBJPEG", "-ljpeg", "-lpthread")
+    cuda = _cuda_home()
+    if os.path.exists(os.path.join(cuda, "include", "nvjpeg.h")):
+        lib = os.path.join(cuda, "lib64")
+        return "nvjpeg", ("-DUD_JPEG_NVJPEG", f"-I{cuda}/include", f"-L{lib}",
+                          f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart", "-lpthread")
+    raise RuntimeError("no JPEG library to build csrc/host_jpeg.cc against: neither libjpeg's "
+                       f"jpeglib.h nor {cuda}/include/nvjpeg.h was found")
+
+
+def host_library() -> ctypes.CDLL:
+    """Compile (if needed) and load ``csrc/host_jpeg.cc`` with ``g++``;
+    keyed, like the kernels, by a hash of the source and the flags. Raises
+    RuntimeError if it does not build."""
+    with _lock:
+        if "jpeg" in _host:
+            return _host["jpeg"]
+        backend, flags = jpeg_backend()
+        key = HOST_SRC.read_bytes() + " ".join(HOST_FLAGS + flags).encode()
+        out = BUILD_DIR / f"libhost_jpeg_{backend}_{hashlib.sha256(key).hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = ["g++", *HOST_FLAGS, str(HOST_SRC), "-o", str(tmp), *flags]
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"g++ failed to build {HOST_SRC.name} ({backend}):\n"
+                                   f"{done.stdout}{done.stderr}")
+            os.replace(tmp, out)
+        _host["jpeg"] = ctypes.CDLL(str(out))
+        return _host["jpeg"]
