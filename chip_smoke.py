@@ -209,10 +209,11 @@ def _k1_check(x, flip, dt, tol: float, what: str) -> tuple[float, bool]:
 
 def phase_k1(quick: bool, card: str) -> dict:
     """K1 against its plain version at the serving (b32) and training (b20)
-    batches of 380² and 256², each flip pattern and both output dtypes; on a
+    batches of 380² and 256² and the FE engine's validation (b64) and test
+    (b96) batches of 380², each flip pattern and both output dtypes; on a
     contiguous view that is not 16-byte aligned (the scalar path); at small
     shapes with a partial last tile, a vector across rows, and no tile at
-    all. Then the times at the four batches: cold (time_cold_ms, the one
+    all. Then the times at the four serving and training batches: cold (time_cold_ms, the one
     the bound's share is taken from), queued (time_queued_ms) and warm
     (time_ms, back to back as the host issues them: for a kernel this short
     that is the host's cost per call), beside the plain version's and the
@@ -235,8 +236,11 @@ def phase_k1(quick: bool, card: str) -> dict:
         worst, exact, checks = max(worst, err), exact and same, checks + 1
 
     batches = [(n, size) for size in (380, 256) for n in (32, 20)]
+    # checked, not timed: the FE engine's validation (b64) and test (b96)
+    # batches of 380^2; K1's tiles and grid follow the batch
+    checked = batches + [(64, 380), (96, 380)]
     inputs = {}
-    for n, size in batches:
+    for n, size in checked:
         x = torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
                           dtype=torch.uint8)
         mixed = torch.rand(n, generator=gen, device="cuda") < 0.5
@@ -258,8 +262,8 @@ def phase_k1(quick: bool, card: str) -> dict:
             check(x, flip, dt, tol, f"{shape}")
             view = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
             check(view, flip, dt, tol, f"{shape} at a 1-byte offset")
-    log(f"[K1] {checks} checks (4 batches x 3 flip patterns x 2 dtypes, 1-byte offsets, small "
-        f"shapes): max |err| {worst:.3g} (tol 1e-5 fp32, 1e-2 bf16), bitwise equal to plain: "
+    log(f"[K1] {checks} checks ({len(checked)} batches {checked} x 3 flip patterns x 2 dtypes, "
+        f"1-byte offsets, small shapes): max |err| {worst:.3g} (tol 1e-5 fp32, 1e-2 bf16), bitwise equal to plain: "
         f"{exact}")
     if quick:
         return dict(max_abs_err=worst)
@@ -450,8 +454,11 @@ def sfconv_kernels() -> list[dict]:
         return lambda x, g: partial(f, x, double_reversal(x).contiguous(), g)
 
     return [
+        # also_batches: the FE engine's train (b20), validation (b64) and
+        # test (b96) forwards
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
-             hilberts=1, streams=2, counts=fwd, workload="per UDEB4 forward at 380^2 b32",
+             also_batches=(20, 64, 96), hilberts=1, streams=2, counts=fwd,
+             workload="per UDEB4 forward at 380^2 b32",
              also={f"per {m} forward at {r}^2 b32": c for (m, r), c in udr.items()},
              parts=k2_parts, gemm=k2_gemm, check=split_check),
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
@@ -509,15 +516,19 @@ def _summaries(spec: dict, per_shape: dict, card: str) -> dict:
 def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
     """A forward kernel (K2, K3, K4) at every shape of sfconv_check_shapes(),
     in bf16 and fp32 against the plain version in fp32 (within 2e-2 and 1e-4
-    of max |ref|), timed beside the plain version in bf16."""
+    of max |ref|), timed beside the plain version in bf16; then, checked
+    alone, at each batch of ``spec["also_batches"]`` over UDEB4's shapes at
+    380^2 (the row grid follows the batch)."""
     import torch
 
     name, fn, plain, batch = spec["name"], spec["fn"], spec["plain"], spec["batch"]
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
     worst_abs, per_shape = 0.0, {}
-    for hw, c, origin in sfconv_check_shapes():
-        x = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def check(n, hw, c, origin):
+        nonlocal worst_abs
+        x = torch.randn(n, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
         if "check" in spec:
             spec["check"](x, w)
@@ -530,11 +541,14 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
         err32 = (got32 - ref).abs().max().item()
         worst_abs = max(worst_abs, err)
         if not (err <= 2e-2 * scale and err32 <= 1e-4 * scale):
-            raise AssertionError(f"{name} {hw}^2/C{c}: bf16 err {err}, fp32 err {err32}, "
+            raise AssertionError(f"{name} {n}x{hw}^2/C{c}: bf16 err {err}, fp32 err {err32}, "
                                  f"max |ref| {scale}")
-        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): bf16 max |err| {err:.4g} = "
+        head = (f"[{name}] {n}x{hw}x{hw}x{c} ({origin}): bf16 max |err| {err:.4g} = "
                 f"{err / scale:.3g} of max |ref| (tol 2e-2); fp32 {err32 / scale:.3g} (tol 1e-4)")
-        del got, ref, got32
+        return x, w, head
+
+    for hw, c, origin in sfconv_check_shapes():
+        x, w, head = check(batch, hw, c, origin)
         if quick:
             log(head + " ok")
             continue
@@ -555,6 +569,11 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
         log(f"{head}; kernel {ms:.4f} ms{parts}, plain(bf16) {plain_ms:.4f} ms, bound {bound:.4f} "
             f"ms ({by}), {card}")
         per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by, **extra)
+    del x, w
+    for n in spec.get("also_batches", ()):
+        for hw, c, _ in SFCONV_SHAPES["UDEB4", 380]:
+            log(check(n, hw, c, f"UDEB4 380^2 b{n}")[2] + " ok")
+        torch.cuda.empty_cache()
     return dict(max_abs_err=worst_abs, **({} if quick else _summaries(spec, per_shape, card)))
 
 
@@ -1032,8 +1051,8 @@ FFPP_FRAMES = {0: "original_sequences/youtube/c23/images/{v:03d}/{f:04d}.jpg",
 def _write_ffpp(root: str, card: str, videos: int = 4, frames: int = 8, size: int = 320) -> None:
     """Encode the tree with the port's JPEG encoder and write the split
     pickles; check the port's encoder and decoder on a smooth frame's round
-    trip, and hold its decode of a noise frame against libjpeg-turbo's
-    (Pillow) where Pillow is installed."""
+    trip, and hold its decoder against libjpeg-turbo's (Pillow) through
+    _decoder_against_pillow."""
     import numpy as np
     import torch
 
@@ -1051,7 +1070,7 @@ def _write_ffpp(root: str, card: str, videos: int = 4, frames: int = 8, size: in
                 with open(os.path.join(root, rel), "wb") as out:
                     out.write(blob)
                 index.append((rel, label))
-                first = first or (frame, blob)
+                first = first or blob
     os.makedirs(os.path.join(root, "pickle_files"))
     for split in ("train", "val", "test"):
         torch.save(index, os.path.join(root, "pickle_files", f"{split}_c23.pickle"))
@@ -1061,26 +1080,74 @@ def _write_ffpp(root: str, card: str, videos: int = 4, frames: int = 8, size: in
     err = float(np.abs(back.astype(np.int32) - smooth).mean())
     if not err < 2.0:
         raise AssertionError(f"a smooth frame comes back {err} levels off on average")
-    frame, blob = first
-    note = "Pillow not installed: no libjpeg-turbo reference"
-    try:
-        import io
-
-        from PIL import Image
-
-        got = native.decode_batch([blob], None, size, size)[0].astype(np.int32)
-        ref = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB")).astype(np.int32)
-        diff = np.abs(got - ref)
-        note = (f"a noise frame against libjpeg-turbo's decode (Pillow): max |d| "
-                f"{int(diff.max())}, mean {float(diff.mean()):.4f} (tol 4 and 0.1), "
-                f"{float((diff > 1).mean()):.2e} of values more than 1 apart")
-    except ImportError:
-        diff = np.zeros(1)
-    if not (diff.max() <= 4 and diff.mean() <= 0.1):
-        raise AssertionError(f"the port's decode is off libjpeg-turbo's: {note}")
+    note = _decoder_against_pillow(first, size)
     log(f"[jpeg] {native.backend()}: {len(index)} noise frames {size}^2 q95 written by the "
-        f"port's encoder ({len(blob)} bytes the first); a smooth frame's round trip "
+        f"port's encoder ({len(first)} bytes the first); a smooth frame's round trip "
         f"{err:.3f} levels from its source on average; {note}; {card}")
+
+
+def _decoder_against_pillow(blob: bytes, size: int) -> str:
+    """The port's decode against libjpeg-turbo's (Pillow's), within 4 levels
+    and 0.1 on average: the port's 4:2:0 noise frame whole, then noise
+    frames Pillow wrote at an odd size in 4:4:4, 4:2:2, 4:2:0 and grey, in
+    one batch whole, cropped to a box inside the frame, and cropped to a
+    box that the frame clamps; a blob that starts like a JPEG and does not
+    decode raises IOError. Pillow is the reference: without it this fails."""
+    import io
+
+    import numpy as np
+
+    from unidefense_torch.data import native
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise AssertionError("[jpeg] Pillow is not installed: no libjpeg-turbo reference for "
+                             "the port's decoder") from e
+
+    def pillow(b):
+        return np.asarray(Image.open(io.BytesIO(b)).convert("RGB")).astype(np.int32)
+
+    rng = np.random.default_rng(SEED + 21)
+    h, w = 251, 317
+    layouts = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "grey": None}
+    blobs = []
+    for name, sub in layouts.items():
+        frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        out = io.BytesIO()
+        if sub is None:
+            Image.fromarray(frame[:, :, 0]).save(out, "JPEG", quality=95)
+        else:
+            Image.fromarray(frame).save(out, "JPEG", quality=95, subsampling=sub)
+        blobs.append(out.getvalue())
+    refs = [pillow(b) for b in blobs]
+    inner, clamped = (13, 21, 163, 191), (-7, 200, 120, 400)  # (x1, y1, x2, y2)
+    cases = [("the port's frame", native.decode_batch([blob], None, size, size),
+              pillow(blob)[None])]
+    cases.append(("whole", native.decode_batch(blobs, None, h, w), np.stack(refs)))
+    for what, (x1, y1, x2, y2) in (("inner box", inner), ("clamped box", clamped)):
+        boxes = np.array([(x1, y1, x2, y2)] * len(blobs), np.int32)
+        x1, y1, x2, y2 = max(0, x1), max(0, y1), min(w, x2), min(h, y2)
+        got = native.decode_batch(blobs, boxes, y2 - y1, x2 - x1)
+        cases.append((what, got, np.stack([r[y1:y2, x1:x2] for r in refs])))
+    parts = []
+    for what, got, ref in cases:
+        for i, name in enumerate(layouts if len(got) == len(layouts) else ["4:2:0"]):
+            diff = np.abs(got[i].astype(np.int32) - ref[i])
+            if not (diff.max() <= 4 and diff.mean() <= 0.1):
+                raise AssertionError(f"[jpeg] {what} {name}: the port's decode is off "
+                                     f"libjpeg-turbo's by max {int(diff.max())}, mean "
+                                     f"{float(diff.mean())} (tol 4 and 0.1)")
+            parts.append(f"{what} {name} max {int(diff.max())} mean {float(diff.mean()):.4f}")
+    broken = b"\xff\xd8" + rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    try:
+        native.decode_batch([blobs[0], broken], None, h, w)
+    except IOError:
+        pass
+    else:
+        raise AssertionError("[jpeg] a blob that does not decode gave no IOError")
+    return (f"against libjpeg-turbo's decode (Pillow), tol max 4 and mean 0.1, frames {w}x{h} "
+            f"q95 noise: {'; '.join(parts)}; a broken blob raises IOError")
 
 
 def _engine_configs(root: str, tree: str, run_id: str) -> tuple[str, str]:
@@ -1235,10 +1302,11 @@ def phase_engine_fe(card: str) -> tuple:
         val_ms = [s * 1e3 / b for b, s in evals]
         log(f"[engine-fe] python -m unidefense_torch.main --engine FE: UDEB4 380^2 b10+10 bf16 "
             f"on {trained.device}, {trained.state.step} steps + test + resume to "
-            f"{again.state.step}: steps 2-6 {2 * bs * len(step_ms) / (sum(step_ms) / 1e3):.2f} "
-            f"img/s, "
-            f"p50 {statistics.median(step_ms):.2f} ms per step ({[round(t, 2) for t in step_ms]}; "
-            f"loop {[round(t, 2) for t in loop_ms]} ms between step starts) beside [train] "
+            f"{again.state.step}: steps 2-6, each between two synchronises, data waits "
+            f"excluded: {2 * bs * len(step_ms) / (sum(step_ms) / 1e3):.2f} img/s, p50 "
+            f"{statistics.median(step_ms):.2f} ms per step ({[round(t, 2) for t in step_ms]}); "
+            f"the loop, data waits included: {2 * bs * len(loop_ms) / (sum(loop_ms) / 1e3):.2f} "
+            f"img/s ({[round(t, 2) for t in loop_ms]} ms between step starts) beside [train] "
             f"{TRAIN_RATES.get('train', float('nan')):.2f} img/s for the bare step; host decode "
             f"p50 {statistics.median(train_loads):.2f} ms per {bs}-frame batch (320^2 -> 380^2, "
             f"{len(train_loads)} batches); validation {[round(v, 2) for v in val_ms]} ms per "

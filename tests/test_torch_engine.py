@@ -182,6 +182,17 @@ def test_resume_is_bitwise(fe_config, tmp_path):
     _assert_states_equal(resumed.state, straight.state)
 
 
+def test_resume_without_its_sidecar_takes_the_step_from_the_checkpoint(fe_config):
+    """A kill between a save's last two renames leaves the checkpoint
+    without its sidecar: the resume continues from the step in model.pt."""
+    engine = _engine(fe_config, id="no-sidecar")
+    engine.state.step = 3
+    engine.ckpt.save(engine.state, engine._meta(3))
+    os.remove(os.path.join(engine.run_dir, "ckpt", "latest.meta.json"))
+    resumed = _engine(fe_config, id="no-sidecar", resume=True)
+    assert resumed.start_step == 4 and resumed.state.step == 3
+
+
 def test_preemption_stops_and_resumes(fe_config, tmp_path):
     cfg = _with_steps(fe_config, tmp_path, num_steps=3, val_steps=4, log_steps=4)
     prev = signal.getsignal(signal.SIGTERM)

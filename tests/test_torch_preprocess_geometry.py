@@ -22,11 +22,11 @@ DTYPES = [torch.float32, torch.bfloat16]
 _dt_ids = ["fp32", "bf16"]
 
 # (N, H, W): serving (32) and training (20) batches and one frame at 380² and
-# 256²; N*H not a multiple of R; W = 1 (a 16-byte vector spans rows); N*H
+# 256²; the FE engine's validation (64) and test (96) batches at 380²; N*H not a multiple of R; W = 1 (a 16-byte vector spans rows); N*H
 # below R (every row scalar); odd W whose smallest tile is over 20 KB (every
 # row scalar); a wide row (R = 1)
 CARD_SHAPES = [(n, s, s) for s in (380, 256) for n in (1, 20, 32)] + [
-    (3, 7, 13), (4, 5, 1), (1, 1, 1), (2, 3, 7), (1, 3, 427), (1, 10, 2000)]
+    (64, 380, 380), (96, 380, 380), (3, 7, 13), (4, 5, 1), (1, 1, 1), (2, 3, 7), (1, 3, 427), (1, 10, 2000)]
 
 
 @pytest.mark.parametrize("out_dtype", DTYPES, ids=_dt_ids)
@@ -124,9 +124,9 @@ def _emulate(x: np.ndarray, flip, out_dtype, aligned: bool) -> torch.Tensor:
 
 # (N, H, W) for the emulation: the main path's widths with H cut to 7 (the
 # tiles depend on W and N*H: every batch but 380² at n = 32 leaves scalar
-# rows), then the edge shapes
+# rows), the FE engine's eval batches at 380², then the edge shapes
 EMULATED = [(n, 7, s) for s in (380, 256) for n in (1, 20, 32)] + [
-    (3, 7, 13), (4, 5, 1), (1, 1, 1), (2, 3, 7), (1, 3, 427), (1, 3, 2000)]
+    (64, 7, 380), (96, 7, 380), (3, 7, 13), (4, 5, 1), (1, 1, 1), (2, 3, 7), (1, 3, 427), (1, 3, 2000)]
 
 
 def _flip(pattern: str, n: int):

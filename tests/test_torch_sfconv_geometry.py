@@ -22,7 +22,8 @@ SHAPES = [(95, 192), (48, 336), (24, 672), (24, 960), (12, 1632),
           (80, 192), (12, 960),
           (95, 128), (64, 128), (48, 128), (32, 128), (48, 256), (32, 256),
           (24, 256), (16, 256), (24, 512), (16, 512), (12, 512), (8, 512)]
-BATCHES = [1, 20, 32]  # one frame, a training step (10 + 10), a serving batch
+BATCHES = [1, 20, 32, 64, 96]  # one frame, a training step (10 + 10), a serving batch,
+# the FE engine's validation and test batches
 _ids = [f"{hw}x{c}" for hw, c in SHAPES]
 
 

@@ -8,9 +8,13 @@ JSON sidecar, so training resumes exactly.
 Layout: ``<run_dir>/ckpt/{best,latest}/`` holding ``model.pt`` (the
 ``state_dict`` and the step) and ``opt.pt`` (the ``OptState``), each a
 ``torch.save``, beside ``{best,latest}.meta.json``. A save writes
-``<name>.tmp`` first and renames it into place, so a crash mid-save leaves
-the previous checkpoint whole. The plateau LR multiplier ``lr_scale`` rides
-in the sidecar.
+``<name>.tmp`` and its sidecar first, then removes the old checkpoint and
+renames the new one into place, in the JAX package's order. A crash while
+the files are written leaves the previous checkpoint whole. A kill between
+the removal and the last rename leaves no checkpoint of that name (a resume
+then starts fresh) or one without its sidecar (a resume then takes the step
+from ``model.pt`` and starts its best-metric bookkeeping anew). The plateau
+LR multiplier ``lr_scale`` rides in the sidecar.
 """
 
 from __future__ import annotations

@@ -144,14 +144,6 @@ class AbstractDataset:
             return (-1, -1, -1, -1)
         raise ValueError(f"Unsupported crop version '{crop}'")
 
-    def _crop(self, img, contents, margin, crop):
-        """The crop of one decoded (H, W, 3) frame, clamped to the frame."""
-        x1, y1, x2, y2 = self._box_for(contents, margin, crop)
-        if x2 <= x1:
-            return img
-        h_, w_ = img.shape[:2]
-        return img[max(0, y1) : min(h_, y2), max(0, x1) : min(w_, x2)]
-
     def load_item(self, items, labels, margin=None, crop="4p"):
         """Decode + crop + resize a batch on the host: one call of the host
         JPEG library for the whole batch."""

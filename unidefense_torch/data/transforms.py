@@ -90,18 +90,13 @@ class DevicePipeline:
 
 @dataclass
 class HostPipeline:
-    """Per-image host stage (unidefense_tpu/data/transforms.py:155-249),
-    applied after the crop; outputs fixed-size uint8. The port's stage is a
-    plain resize; the datasets run it inside the host JPEG library's batched
-    decode, and ``__call__`` runs it on one decoded frame."""
+    """The host stage's fixed output size (unidefense_tpu/data/
+    transforms.py:155-249). The port's stage is a plain resize after the
+    crop, which the datasets run inside the host JPEG library's batched
+    decode."""
 
     height: int = 256
     width: int = 256
-
-    def __call__(self, img: np.ndarray) -> np.ndarray:
-        if img.shape[0] != self.height or img.shape[1] != self.width:
-            img = resize_bilinear(img[None], self.height, self.width)[0]
-        return img
 
 
 def build_transforms(cfg_list: list[dict], corrupt_distorted: bool = False):

@@ -270,7 +270,8 @@ class AbstractEngine:
         self.best_auc = meta.get("best_auc", self.best_auc)
         self.best_hter = meta.get("best_hter", self.best_hter)
         self.best_step = meta.get("best_step", self.best_step)
-        self.start_step = int(meta.get("step", 0)) + 1
+        # a checkpoint whose sidecar a kill mid-save lost keeps its step in model.pt
+        self.start_step = int(meta.get("step", self.state.step)) + 1
         if getattr(self, "plateau", None) is not None and "plateau" in meta:
             p = self.plateau
             saved = meta["plateau"]
@@ -427,8 +428,6 @@ class AbstractEngine:
 
     def _batchers(self) -> list:
         """The engine's training InfiniteBatchers (for resume fast-forward)."""
-        if hasattr(self, "batchers"):
-            return list(self.batchers)
         return [getattr(self, name) for name in ("real_batcher", "fake_batcher")
                 if hasattr(self, name)]
 
