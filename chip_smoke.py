@@ -33,8 +33,12 @@ UDEB4 at 380x380, 10 real + 10 fake, bf16, trained 6 steps with validation,
 tested from its best checkpoint and resumed to step 9, on a synthetic FF++
 tree of JPEG frames written and decoded by the port's host JPEG library,
 checking every train step's and eval batch's launches of K1, K2 and
-K2-bwd. Any failure raises, so the exit code is not 0 and no result line is
-printed.
+K2-bwd; and the OCIM engine the same way (``[engine-ocim]``): UDR18 at
+256x256, three source domains x (10 real + 10 fake), bf16, on a synthetic
+face anti-spoofing tree of FrameStores (480x360 JPEG frames, 4p face crops
+with a drawn margin, RandomResizedCrop with the host library's bicubic
+resize, held against torch's bicubic in its ``[jpeg]`` line). Any failure
+raises, so the exit code is not 0 and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -55,7 +59,9 @@ SEED = 0
 
 # each model's YAML and the resolution its data YAML crops to:
 # config_template/forgery/data_ffc23.yml, ocim/data_m.yml (RandomResizedCrop
-# 256) and uniatt/Prot1/data_ffpp.yml (380); each trains at 10 real + 10 fake
+# 256) and uniatt/Prot1/data_ffpp.yml (380); the [train*] phases take each
+# through the bare step at 10 real + 10 fake, the engines at their own
+# batches (FE: UDEB4 at 10 + 10; OCIM: UDR18 at 30 + 30, three domains)
 MODELS = {
     "UDEB4": ("config_template/forgery/model_udeb4.yml", 380),
     "UDR18": ("config_template/ocim/model_udr18.yml", 256),
@@ -209,8 +215,9 @@ def _k1_check(x, flip, dt, tol: float, what: str) -> tuple[float, bool]:
 
 def phase_k1(quick: bool, card: str) -> dict:
     """K1 against its plain version at the serving (b32) and training (b20)
-    batches of 380² and 256² and the FE engine's validation (b64) and test
-    (b96) batches of 380², each flip pattern and both output dtypes; on a
+    batches of 380² and 256², the FE engine's validation (b64) and test
+    (b96) batches of 380² and the OCIM engine's training (b60), validation
+    and test batches of 256², each flip pattern and both output dtypes; on a
     contiguous view that is not 16-byte aligned (the scalar path); at small
     shapes with a partial last tile, a vector across rows, and no tile at
     all. Then the times at the four serving and training batches: cold (time_cold_ms, the one
@@ -236,9 +243,10 @@ def phase_k1(quick: bool, card: str) -> dict:
         worst, exact, checks = max(worst, err), exact and same, checks + 1
 
     batches = [(n, size) for size in (380, 256) for n in (32, 20)]
-    # checked, not timed: the FE engine's validation (b64) and test (b96)
-    # batches of 380^2; K1's tiles and grid follow the batch
-    checked = batches + [(64, 380), (96, 380)]
+    # checked, not timed: the engines' batches, K1's tiles and grid follow
+    # the batch; FE's validation (b64) and test (b96) at 380^2, OCIM's
+    # training (b60), validation and test at 256^2
+    checked = batches + [(64, 380), (96, 380), (60, 256), (64, 256), (96, 256)]
     inputs = {}
     for n, size in checked:
         x = torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
@@ -454,15 +462,19 @@ def sfconv_kernels() -> list[dict]:
         return lambda x, g: partial(f, x, double_reversal(x).contiguous(), g)
 
     return [
-        # also_batches: the FE engine's train (b20), validation (b64) and
-        # test (b96) forwards
+        # also_batches: the engines' forwards, {(model, res): batches}: FE's
+        # train (b20), validation (b64) and test (b96) of UDEB4, OCIM's train
+        # (b60), validation and test of UDR18
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
-             also_batches=(20, 64, 96), hilberts=1, streams=2, counts=fwd,
+             also_batches={("UDEB4", 380): (20, 64, 96), ("UDR18", 256): (60, 64, 96)},
+             hilberts=1, streams=2, counts=fwd,
              workload="per UDEB4 forward at 380^2 b32",
              also={f"per {m} forward at {r}^2 b32": c for (m, r), c in udr.items()},
              parts=k2_parts, gemm=k2_gemm, check=split_check),
+        # also_batches: the OCIM engine's train backward (b60) of UDR18
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
-             seed=SEED + 4, hilberts=1, streams=2, counts=fwd,
+             seed=SEED + 4, also_batches={("UDR18", 256): (60,)}, hilberts=1, streams=2,
+             counts=fwd,
              sums=lambda x, g: partial(k2._launch_dw, x, g),
              sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g), gemm=k2_bwd_gemm,
              workload="per UDEB4 backward at 380^2 b20",
@@ -517,8 +529,8 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
     """A forward kernel (K2, K3, K4) at every shape of sfconv_check_shapes(),
     in bf16 and fp32 against the plain version in fp32 (within 2e-2 and 1e-4
     of max |ref|), timed beside the plain version in bf16; then, checked
-    alone, at each batch of ``spec["also_batches"]`` over UDEB4's shapes at
-    380^2 (the row grid follows the batch)."""
+    alone, at each batch of ``spec["also_batches"]`` over its model's shapes
+    at its resolution (the row grid follows the batch)."""
     import torch
 
     name, fn, plain, batch = spec["name"], spec["fn"], spec["plain"], spec["batch"]
@@ -570,10 +582,11 @@ def phase_sfconv_fwd(spec: dict, quick: bool, card: str) -> dict:
             f"ms ({by}), {card}")
         per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, by=by, **extra)
     del x, w
-    for n in spec.get("also_batches", ()):
-        for hw, c, _ in SFCONV_SHAPES["UDEB4", 380]:
-            log(check(n, hw, c, f"UDEB4 380^2 b{n}")[2] + " ok")
-        torch.cuda.empty_cache()
+    for (model, res), batches in spec.get("also_batches", {}).items():
+        for n in batches:
+            for hw, c, _ in SFCONV_SHAPES[model, res]:
+                log(check(n, hw, c, f"{model} {res}^2 b{n}")[2] + " ok")
+            torch.cuda.empty_cache()
     return dict(max_abs_err=worst_abs, **({} if quick else _summaries(spec, per_shape, card)))
 
 
@@ -582,16 +595,20 @@ def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
     sfconv_check_shapes(): x_bar (the forward kernel on the gradient) and
     w_bar (the sums kernel and the repack) in bf16 and fp32 against the
     plain version in fp32, each within 2e-2 and 1e-4 of its own max |ref|.
-    The sums kernel is timed alone, the whole backward beside it."""
+    The sums kernel is timed alone, the whole backward beside it. Then,
+    checked alone, at each batch of ``spec["also_batches"]`` over its
+    model's shapes."""
     import torch
 
     name, bwd, bwd_plain, batch = spec["name"], spec["fn"], spec["plain"], spec["batch"]
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
     worst, per_shape = 0.0, {}
-    for hw, c, origin in sfconv_check_shapes():
-        x = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
-        g = torch.randn(batch, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def check(n, hw, c, origin):
+        nonlocal worst
+        x = torch.randn(n, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn(n, hw, hw, c, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(2 * c, 2 * c, generator=gen, device="cuda") / (2 * c) ** 0.5
         ref_x, ref_w = bwd_plain(x.float(), g.float(), w)
         got_x, got_w = bwd(x, g, w)
@@ -605,14 +622,18 @@ def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
             errs.append(f"{part} bf16 {rel:.3g} fp32 {rel32:.3g}")
             worst = max(worst, rel * scale)
             if not (rel <= 2e-2 and rel32 <= 1e-4):
-                raise AssertionError(f"{name} {hw}^2/C{c} {part}: bf16 rel err {rel}, "
+                raise AssertionError(f"{name} {n}x{hw}^2/C{c} {part}: bf16 rel err {rel}, "
                                      f"fp32 rel err {rel32}, max |ref| {scale}")
         del ref_x, ref_w, got_x, got_w, got32_x, got32_w
         sums = spec["sums"](x, g)
         if not torch.equal(sums(), sums()):  # split-K with a fixed-order reduction
-            raise AssertionError(f"{name} {hw}^2/C{c}: two bf16 sums runs differ")
-        head = (f"[{name}] {batch}x{hw}x{hw}x{c} ({origin}): error over max |ref| "
+            raise AssertionError(f"{name} {n}x{hw}^2/C{c}: two bf16 sums runs differ")
+        head = (f"[{name}] {n}x{hw}x{hw}x{c} ({origin}): error over max |ref| "
                 f"{', '.join(errs)} (tol bf16 2e-2, fp32 1e-4); bf16 sums repeat bit for bit")
+        return x, g, w, sums, head
+
+    for hw, c, origin in sfconv_check_shapes():
+        x, g, w, sums, head = check(batch, hw, c, origin)
         if quick:
             log(head + " ok")
             continue
@@ -631,6 +652,12 @@ def phase_sfconv_bwd(spec: dict, quick: bool, card: str) -> dict:
             f"{card}")
         per_shape[(hw, c)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, whole_ms=whole, by=by,
                                   **extra)
+    del x, g, w, sums
+    for (model, res), batches in spec.get("also_batches", {}).items():
+        for n in batches:
+            for hw, c, _ in SFCONV_SHAPES[model, res]:
+                log(check(n, hw, c, f"{model} {res}^2 b{n}")[4] + " ok")
+            torch.cuda.empty_cache()
     return dict(max_abs_err=worst, **({} if quick else _summaries(spec, per_shape, card)))
 
 
@@ -1150,31 +1177,185 @@ def _decoder_against_pillow(blob: bytes, size: int) -> str:
             f"q95 noise: {'; '.join(parts)}; a broken blob raises IOError")
 
 
-def _engine_configs(root: str, tree: str, run_id: str) -> tuple[str, str]:
-    """config_template/forgery/model_udeb4.yml and data_ffc23.yml with the
-    tree as root, one fake method, 6 steps logged and validated every 3, a
-    fresh id; and the same with resume on and 9 steps."""
+def _engine_configs(out_dir: str, model_name: str, run_id: str, **data) -> tuple[str, str]:
+    """``model_name``'s YAML and the data YAML it names, with the keys of
+    ``data`` set (the tree's root, the cadence), 6 steps and a fresh id,
+    written into ``out_dir``; and the same with resume on and 9 steps."""
     import yaml
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(repo, MODELS["UDEB4"][0])) as f:
+    with open(os.path.join(repo, MODELS[model_name][0])) as f:
         model = yaml.safe_load(f)
     with open(os.path.join(repo, model["data"]["file"])) as f:
-        data = yaml.safe_load(f)
+        data_yml = yaml.safe_load(f)
     paths = []
     for steps, resume in ((6, False), (9, True)):
-        data.update(root=tree, fake_method=["Deepfakes"], num_steps=steps, log_steps=3,
-                    val_steps=3)
-        data_path = os.path.join(root, f"data_{steps}.yml")
+        data_yml.update(data, num_steps=steps)
+        data_path = os.path.join(out_dir, f"data_{steps}.yml")
         with open(data_path, "w") as f:
-            yaml.safe_dump(data, f)
+            yaml.safe_dump(data_yml, f)
         model["data"]["file"] = data_path
         model["config"].update(id=run_id, resume=resume)
-        model_path = os.path.join(root, f"model_{steps}.yml")
+        model_path = os.path.join(out_dir, f"model_{steps}.yml")
         with open(model_path, "w") as f:
             yaml.safe_dump(model, f)
         paths.append(model_path)
     return tuple(paths)
+
+
+class EngineRuns:
+    """``python -m unidefense_torch.main --engine <name>`` in process, three
+    times from one pair of configs (:func:`_engine_configs`): train 6 steps,
+    ``--test`` from the best checkpoint, resume to step 9. Around each
+    main() call the launch counts are set to 0 and read after; every train
+    step is timed between two synchronises with its own launch deltas,
+    every ``load_item`` and ``load_batch`` call and every ``score_dataset``
+    are timed. Checks each run's device and launches: ``step_want`` per
+    train step and ``eval_want`` per eval batch (K1, K2, K2-bwd, K3,
+    K3-bwd)."""
+
+    def __init__(self, tag: str, engine: str, dataset_cls, engine_cls, step_want, eval_want):
+        self.tag, self.engine = tag, engine
+        self.dataset_cls, self.engine_cls = dataset_cls, engine_cls
+        self.step_want, self.eval_want = step_want, eval_want
+        self.steps: list = []    # (count deltas, start, end) of every train step
+        self.loads: list = []    # (frames, seconds) of every load_item
+        self.batches: list = []  # seconds of every _load_batch (a step's streams)
+        self.evals: list = []    # (batches, seconds) of every score_dataset
+        self.runs: list = []     # (engine, seconds, steps, eval batches) of every main()
+        self.totals = (0,) * 5
+
+    def run(self, root: str, first: str, resumed: str):
+        import torch
+
+        from unidefense_torch import main as cli
+        from unidefense_torch.engines import base
+
+        make_train_step, load_item = base.make_train_step, self.dataset_cls.load_item
+        load_batch, score_dataset = self.engine_cls._load_batch, base.AbstractEngine.score_dataset
+        steps, loads, batches, evals = self.steps, self.loads, self.batches, self.evals
+
+        def timed_make_train_step(*args, **kwargs):
+            step = make_train_step(*args, **kwargs)
+
+            def timed(state, batch, generator=None, draws=None):
+                torch.cuda.synchronize()
+                before, t0 = _route_counts(), time.perf_counter()
+                out = step(state, batch, generator, draws)
+                torch.cuda.synchronize()
+                steps.append((tuple(b - a for a, b in zip(before, _route_counts())), t0,
+                              time.perf_counter()))
+                return out
+            return timed
+
+        def timed_load_item(ds, items, labels, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = load_item(ds, items, labels, *args, **kwargs)
+            loads.append((len(items), time.perf_counter() - t0))
+            return out
+
+        def timed_load_batch(engine, sels):
+            t0 = time.perf_counter()
+            out = load_batch(engine, sels)
+            batches.append(time.perf_counter() - t0)
+            return out
+
+        def timed_score_dataset(engine, dataset, batch_size, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = score_dataset(engine, dataset, batch_size, *args, **kwargs)
+            torch.cuda.synchronize()
+            evals.append((-(-len(dataset) // batch_size), time.perf_counter() - t0))
+            return out
+
+        cwd, stdout = os.getcwd(), sys.stdout
+        try:
+            os.chdir(root)  # runs/ lands in the temporary directory
+            base.make_train_step = timed_make_train_step
+            self.dataset_cls.load_item = timed_load_item
+            self.engine_cls._load_batch = timed_load_batch
+            base.AbstractEngine.score_dataset = timed_score_dataset
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            common = ["--engine", self.engine, "--offline"]
+            for argv in (["--config", first, *common], ["--config", first, *common, "--test"],
+                         ["--config", resumed, *common]):
+                n_steps, n_evals = len(steps), len(evals)
+                _reset_counts()
+                t0 = time.perf_counter()
+                engine = cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                got = _route_counts()
+                sys.stdout = stdout
+                new_steps = steps[n_steps:]
+                n_batches = sum(b for b, _ in evals[n_evals:])
+                want = tuple(len(new_steps) * s + n_batches * e
+                             for s, e in zip(self.step_want, self.eval_want))
+                bad = [i for i, (d, _, _) in enumerate(new_steps) if d != self.step_want]
+                if got != want or bad:
+                    raise AssertionError(
+                        f"[{self.tag}] {argv[-1]}: launches K1, K2, K2-bwd, K3, K3-bwd = {got} "
+                        f"over {len(new_steps)} steps and {n_batches} eval batches, expected "
+                        f"{want}; steps off {bad}")
+                if engine.device.type != "cuda":
+                    raise AssertionError(f"[{self.tag}] ran on {engine.device}")
+                self.totals = tuple(a + b for a, b in zip(self.totals, got))
+                self.runs.append((engine, seconds, len(new_steps), n_batches))
+            self.peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            base.make_train_step, self.dataset_cls.load_item = make_train_step, load_item
+            self.engine_cls._load_batch = load_batch
+            base.AbstractEngine.score_dataset = score_dataset
+            sys.stdout = stdout
+            os.chdir(cwd)
+
+    def check(self, root: str, n_iters: int, eval_lines: int) -> tuple[list, list, list]:
+        """The first run's checkpoints, the ``n_iters`` Train Iter lines of
+        its run directory (the first run's and the resumed run's) with finite
+        losses, ``eval_lines`` Eval Step and Test lines with an AUC in
+        [0, 1], and the resume from step 6 to 9: (losses, AUCs, those
+        lines)."""
+        import numpy as np
+
+        trained, _, again = (r[0] for r in self.runs)
+        run_dir = os.path.join(root, trained.run_dir)
+        for name in ("best", "latest"):
+            if not os.path.isdir(os.path.join(run_dir, "ckpt", name)):
+                raise AssertionError(f"[{self.tag}] no ckpt/{name} in {run_dir}")
+        with open(os.path.join(run_dir, "records.txt")) as f:
+            records = f.read().splitlines()
+        with open(os.path.join(run_dir, "test.txt")) as f:
+            test_out = f.read().splitlines()
+        iters = [ln for ln in records if ln.startswith("Train Iter")]
+        losses = [float(ln.split("Loss ")[1].split(",")[0]) for ln in iters]
+        scored = [ln for ln in records if ln.startswith("Eval Step")]
+        # the test report with its indented continuation lines
+        at = next(i for i, ln in enumerate(test_out) if ln.startswith("Test |"))
+        end = next((i for i in range(at + 1, len(test_out)) if not test_out[i][:1].isspace()),
+                   len(test_out))
+        scored.append(" ".join(ln.strip() for ln in test_out[at:end]))
+        aucs = [float(ln.split("AUC ")[1].split(",")[0]) for ln in scored]
+        if not (len(iters) == n_iters and all(np.isfinite(losses))):
+            raise AssertionError(f"[{self.tag}] Train Iter lines {iters}")
+        if not (len(aucs) == eval_lines and all(0.0 <= a <= 1.0 for a in aucs)):
+            raise AssertionError(f"[{self.tag}] Eval Step / Test lines {scored}")
+        if "Resumed from step 6 (best=False)." not in records or again.state.step != 9 or \
+                trained.state.step != 6:
+            raise AssertionError(f"[{self.tag}] resume: steps {trained.state.step}, "
+                                 f"{again.state.step}")
+        return losses, aucs, scored
+
+    def rates(self, batch: int) -> dict:
+        """Steps 2-6 of the first run: the step rate (each step between two
+        synchronises, data waits excluded) and the loop rate (from one step's
+        start to the next's where no validation lies between, data waits
+        included), as img/s and ms."""
+        first = self.steps[:6]
+        step_ms = [(t1 - t0) * 1e3 for _, t0, t1 in first[1:]]
+        loop_ms = [(b[1] - a[1]) * 1e3 for i, (a, b) in
+                   enumerate(zip(first[1:], first[2:]), start=2) if i % 3]
+        return dict(step_rate=batch * len(step_ms) / (sum(step_ms) / 1e3), step_ms=step_ms,
+                    loop_rate=batch * len(loop_ms) / (sum(loop_ms) / 1e3), loop_ms=loop_ms)
 
 
 def phase_engine_fe(card: str) -> tuple:
@@ -1189,140 +1370,212 @@ def phase_engine_fe(card: str) -> tuple:
     import shutil
     import tempfile
 
-    import numpy as np
-    import torch
-
-    from unidefense_torch import main as cli
     from unidefense_torch.data.datasets import FaceForensics
-    from unidefense_torch.engines import base
+    from unidefense_torch.engines.forgery import ForgeryEngine
 
     per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
-    step_want = (1, 4 * per_k2, 2 * per_k2, 0, 0)
-    eval_want = (1, per_k2, 0, 0, 0)
-    steps: list = []  # (count deltas, start, end) of every train step
-    loads: list = []  # (frames, seconds) of every load_item
-    evals: list = []  # (batches, seconds) of every score_dataset
-    make_train_step, load_item, score_dataset = (
-        base.make_train_step, FaceForensics.load_item, base.AbstractEngine.score_dataset)
-
-    def timed_make_train_step(*args, **kwargs):
-        step = make_train_step(*args, **kwargs)
-
-        def timed(state, batch, generator=None, draws=None):
-            torch.cuda.synchronize()
-            before, t0 = _route_counts(), time.perf_counter()
-            out = step(state, batch, generator, draws)
-            torch.cuda.synchronize()
-            steps.append((tuple(b - a for a, b in zip(before, _route_counts())), t0,
-                          time.perf_counter()))
-            return out
-        return timed
-
-    def timed_load_item(self, items, labels, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = load_item(self, items, labels, *args, **kwargs)
-        loads.append((len(items), time.perf_counter() - t0))
-        return out
-
-    def timed_score_dataset(self, dataset, batch_size, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = score_dataset(self, dataset, batch_size, *args, **kwargs)
-        torch.cuda.synchronize()
-        evals.append((-(-len(dataset) // batch_size), time.perf_counter() - t0))
-        return out
-
-    cwd, stdout = os.getcwd(), sys.stdout
+    runs = EngineRuns("engine-fe", "FE", FaceForensics, ForgeryEngine,
+                      (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
     root = tempfile.mkdtemp(prefix="ud_engine_fe_")
-    totals = (0,) * 5
     try:
         tree = os.path.join(root, "ffpp")
         _write_ffpp(tree, card)
-        first, resumed = _engine_configs(root, tree, f"chip-smoke-{os.getpid()}")
-        os.chdir(root)  # runs/ lands in the temporary directory
-        base.make_train_step = timed_make_train_step
-        FaceForensics.load_item = timed_load_item
-        base.AbstractEngine.score_dataset = timed_score_dataset
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        runs = []
-        for argv in (["--config", first, "--engine", "FE", "--offline"],
-                     ["--config", first, "--engine", "FE", "--offline", "--test"],
-                     ["--config", resumed, "--engine", "FE", "--offline"]):
-            n_steps, n_evals = len(steps), len(evals)
-            _reset_counts()
-            t0 = time.perf_counter()
-            engine = cli.main(argv)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            got = _route_counts()
-            sys.stdout = stdout
-            new_steps = steps[n_steps:]
-            batches = sum(b for b, _ in evals[n_evals:])
-            want = tuple(len(new_steps) * s + batches * e for s, e in zip(step_want, eval_want))
-            bad = [i for i, (d, _, _) in enumerate(new_steps) if d != step_want]
-            if got != want or bad:
-                raise AssertionError(f"[engine-fe] {argv[-1]}: launches K1, K2, K2-bwd, K3, "
-                                     f"K3-bwd = {got} over {len(new_steps)} steps and {batches} "
-                                     f"eval batches, expected {want}; steps off {bad}")
-            if engine.device.type != "cuda":
-                raise AssertionError(f"[engine-fe] ran on {engine.device}")
-            totals = tuple(a + b for a, b in zip(totals, got))
-            runs.append((engine, seconds, len(new_steps), batches))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        trained, tested, again = (r[0] for r in runs)
-        run_dir = os.path.join(root, trained.run_dir)
-        for name in ("best", "latest"):
-            if not os.path.isdir(os.path.join(run_dir, "ckpt", name)):
-                raise AssertionError(f"[engine-fe] no ckpt/{name} in {run_dir}")
-        with open(os.path.join(run_dir, "records.txt")) as f:
-            records = f.read()
-        with open(os.path.join(run_dir, "test.txt")) as f:
-            test_out = f.read()
-        iters = [ln for ln in records.splitlines() if ln.startswith("Train Iter")]
-        losses = [float(ln.split("Loss ")[1].split(",")[0]) for ln in iters]
-        aucs = [float(ln.split("AUC ")[1].split(",")[0]) for ln in
-                records.splitlines() + test_out.splitlines()
-                if ln.startswith(("Eval Step", "Test |"))]
-        if not (len(iters) == 3 and all(np.isfinite(losses))):
-            raise AssertionError(f"[engine-fe] Train Iter lines {iters}")
-        if not (len(aucs) == 4 and all(0.0 <= a <= 1.0 for a in aucs)):
-            raise AssertionError(f"[engine-fe] Eval Step / Test lines give AUC {aucs}")
-        if "Resumed from step 6" not in records or again.state.step != 9 or \
-                trained.state.step != 6:
-            raise AssertionError(f"[engine-fe] resume: steps {trained.state.step}, "
-                                 f"{again.state.step}")
-        # steady state: steps 2-6 of the first run; the loop's own time from
-        # one step's start to the next's, where no validation lies between
-        first_steps = steps[:6]
-        step_ms = [(t1 - t0) * 1e3 for _, t0, t1 in first_steps[1:]]
-        loop_ms = [(b[1] - a[1]) * 1e3 for i, (a, b) in
-                   enumerate(zip(first_steps[1:], first_steps[2:]), start=2) if i % 3]
+        runs.run(root, *_engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}", root=tree,
+                                        fake_method=["Deepfakes"], log_steps=3, val_steps=3))
+        losses, aucs, _ = runs.check(root, n_iters=3, eval_lines=4)
+        trained, again = runs.runs[0][0], runs.runs[2][0]
         bs = trained.data_cfg["train_batch_size"]
-        train_loads = [s * 1e3 for n, s in loads if n == bs]
-        val_ms = [s * 1e3 / b for b, s in evals]
+        r = runs.rates(2 * bs)
+        train_loads = [s * 1e3 for n, s in runs.loads if n == bs]
+        val_ms = [s * 1e3 / b for b, s in runs.evals]
         log(f"[engine-fe] python -m unidefense_torch.main --engine FE: UDEB4 380^2 b10+10 bf16 "
             f"on {trained.device}, {trained.state.step} steps + test + resume to "
             f"{again.state.step}: steps 2-6, each between two synchronises, data waits "
-            f"excluded: {2 * bs * len(step_ms) / (sum(step_ms) / 1e3):.2f} img/s, p50 "
-            f"{statistics.median(step_ms):.2f} ms per step ({[round(t, 2) for t in step_ms]}); "
-            f"the loop, data waits included: {2 * bs * len(loop_ms) / (sum(loop_ms) / 1e3):.2f} "
-            f"img/s ({[round(t, 2) for t in loop_ms]} ms between step starts) beside [train] "
-            f"{TRAIN_RATES.get('train', float('nan')):.2f} img/s for the bare step; host decode "
-            f"p50 {statistics.median(train_loads):.2f} ms per {bs}-frame batch (320^2 -> 380^2, "
-            f"{len(train_loads)} batches); validation {[round(v, 2) for v in val_ms]} ms per "
-            f"b64/b96 batch with its decode; peak memory {peak:.3f} GiB; runs "
-            f"{[round(r[1], 2) for r in runs]} s; {card}")
-        log(f"[engine-fe] launches per train step K1 {step_want[0]} K2 {step_want[1]} K2-bwd "
-            f"{step_want[2]} and per eval batch K1 1 K2 {per_k2} over {len(steps)} steps and "
-            f"{sum(b for b, _ in evals)} eval batches (totals {totals}); losses {losses}; AUC "
-            f"{aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; {card}")
+            f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
+            f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
+            f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
+            f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
+            f"bare step; host decode p50 {statistics.median(train_loads):.2f} ms per {bs}-frame "
+            f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation "
+            f"{[round(v, 2) for v in val_ms]} ms per b64/b96 batch with its decode; peak memory "
+            f"{runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs]} s; {card}")
+        log(f"[engine-fe] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
+            f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
+            f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
+            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
+            f"{card}")
     finally:
-        base.make_train_step, FaceForensics.load_item = make_train_step, load_item
-        base.AbstractEngine.score_dataset = score_dataset
-        sys.stdout = stdout
-        os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
-    return totals
+    return runs.totals
+
+
+# the synthetic face anti-spoofing tree of [engine-ocim]: the four OCIM
+# domains as config_template/ocim/data_m.yml names them, each a FrameStore of
+# 480x360 frames under the reference's _crop keys and two 5-point lists
+OCIM_DOMAINS = ("Oulu_NPU", "CASIA_database", "replayattack", "MSU-MFSD")
+OCIM_FRAME = (360, 480)  # (H, W)
+
+
+def _write_fas(root: str, videos: int = 3, frames: int = 8) -> int:
+    """Per domain and label, ``videos`` videos of ``frames`` q95 4:2:0 JPEG
+    frames of seeded noise, written by the port's encoder into
+    ``<root>/lmdb/<domain>.udb``; each frame's face box (x, y, w, h) about
+    200^2 at a seeded position, every third frame's within 40 px of an edge,
+    so that margins up to 0.5 cross the frame and its crop is clamped.
+    Returns the number of frames written."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.data import native
+    from unidefense_torch.data.store import FrameStoreWriter
+
+    rng = np.random.default_rng(SEED + 30)
+    h, w = OCIM_FRAME
+    count = 0
+    for dom in OCIM_DOMAINS:
+        os.makedirs(os.path.join(root, dom, "lists"))
+        with FrameStoreWriter(os.path.join(root, "lmdb", f"{dom}.udb")) as store:
+            for label in ("real", "fake"):
+                items = []
+                for v in range(videos):
+                    for f in range(frames):
+                        rel = f"{dom}/{label}/video_{v}/{f:04d}.jpg"
+                        frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                        store.add(rel.replace(dom, f"{dom}_crop"), native.encode_jpeg(frame, 95))
+                        bw, bh = (int(x) for x in rng.integers(180, 221, 2))
+                        if (v * frames + f) % 3 == 0:  # within 40 px of an edge
+                            x = int(rng.choice([rng.integers(0, 41), w - bw - rng.integers(0, 41)]))
+                            y = int(rng.choice([rng.integers(0, 41), h - bh - rng.integers(0, 41)]))
+                        else:
+                            x = int(rng.integers(41, w - bw - 40))
+                            y = int(rng.integers(41, h - bh - 40))
+                        items.append(f"{rel} 0 {x} {y} {bw} {bh}")
+                        count += 1
+                torch.save(items, os.path.join(root, dom, "lists", f"{label}_5points.pickle"))
+    return count
+
+
+def _cubic_against_torch(card: str) -> str:
+    """The host library's bicubic crop-and-resize (the RandomResizedCrop
+    path) against its plain version, torch's bicubic on the card machine's
+    CPU over the frame the library decodes, within 1 level: crops of a
+    480x360 q95 noise frame that scale up and down to 256^2, one touching
+    the frame's corner, one that the frame clamps; and ``jpeg_dims`` against
+    Pillow's reading of the headers and the decoded sizes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from unidefense_torch.data import native
+    from unidefense_torch.data.native import INTER_CUBIC
+    from unidefense_torch.data.transforms import resize_plain
+
+    rng = np.random.default_rng(SEED + 31)
+    sizes = [(360, 480), (251, 317), (97, 120), (33, 601)]
+    blobs = []
+    for h, w in sizes:
+        out = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(out, "JPEG",
+                                                                             quality=95)
+        blobs.append(out.getvalue())
+    dims = native.jpeg_dims(blobs)
+    pil = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")).astype(np.int32) for b in blobs]
+    if not dims.tolist() == [list(s) for s in sizes] == [list(p.shape[:2]) for p in pil]:
+        raise AssertionError(f"[jpeg] jpeg_dims {dims.tolist()}, Pillow "
+                             f"{[p.shape[:2] for p in pil]}, sizes {sizes}")
+    for b, (h, w), ref in zip(blobs, dims.tolist(), pil):
+        # decoded at its header's size the frame is not resized: it is
+        # Pillow's decode within the IDCT's rounding ([jpeg] above)
+        d = np.abs(native.decode_batch([b], None, h, w)[0] - ref)
+        if not d.max() <= 4:
+            raise AssertionError(f"[jpeg] {h}x{w} decoded at its header's size is {d.max()} "
+                                 "levels off Pillow's decode")
+    h, w = sizes[0]
+    whole = native.decode_batch(blobs[:1], None, h, w)[0]
+    boxes = {"97x120 up": (200, 150, 320, 247), "300x260 down": (90, 50, 390, 310),
+             "whole 480x360 down": (0, 0, 480, 360), "40x50 up, the corner": (440, 310, 480, 360),
+             "clamped 230x210": (-30, 150, 200, 400)}
+    parts = []
+    for what, (x1, y1, x2, y2) in boxes.items():
+        got = native.decode_batch(blobs[:1], np.asarray([(x1, y1, x2, y2)], np.int32), 256, 256,
+                                  interp=INTER_CUBIC)[0].astype(np.int32)
+        src = whole[max(0, y1):min(h, y2), max(0, x1):min(w, x2)]
+        d = np.abs(got - resize_plain(src[None], 256, 256, INTER_CUBIC)[0])
+        if not d.max() <= 1:
+            raise AssertionError(f"[jpeg] bicubic {what}: max {int(d.max())} levels off torch's")
+        parts.append(f"{what} max {int(d.max())} mean {float(d.mean()):.2e}")
+    return (f"bicubic crop+resize to 256^2 against torch bicubic (tol max 1): {'; '.join(parts)}; "
+            f"jpeg_dims equal Pillow's sizes at {sizes}, each frame decoded at them within 4 "
+            "levels of Pillow's")
+
+
+def phase_engine_ocim(card: str) -> tuple:
+    """``python -m unidefense_torch.main --engine OCIM`` in process: UDR18 at
+    256^2, three source domains (O, C, I) x 10 real + 10 fake = b30+30,
+    bf16, AdamW amsgrad (model_udr18.yml, data_m.yml), RandomResizedCrop
+    with the bicubic resize, 4p face crops with a margin drawn per batch
+    from (0.0, 0.5), on a synthetic FAS tree of FrameStores. Trains 6 steps
+    (validation on M at 3 and 6, b64, margin 0.3, video-level EER), tests
+    from the best checkpoint (b96), resumes to step 9. Checks as
+    [engine-fe], with launches per train step K1 1, K2 32, K2-bwd 16 and per
+    eval batch K1 1, K2 8. Returns the launch totals over the three runs."""
+    import shutil
+    import tempfile
+
+    from unidefense_torch.data.datasets import OCIMSubDataset
+    from unidefense_torch.engines.ocim import OCIMEngine
+
+    per_k2, _ = per_forward_launches("UDR18", 256, frozenset())
+    runs = EngineRuns("engine-ocim", "OCIM", OCIMSubDataset, OCIMEngine,
+                      (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
+    root = tempfile.mkdtemp(prefix="ud_engine_ocim_")
+    try:
+        tree = os.path.join(root, "fas")
+        t0 = time.perf_counter()
+        n_frames = _write_fas(tree)
+        note = _cubic_against_torch(card)
+        log(f"[jpeg] {n_frames} noise frames {OCIM_FRAME[1]}x{OCIM_FRAME[0]} q95 written by the "
+            f"port's encoder into 4 FrameStores in {time.perf_counter() - t0:.2f} s; {note}; "
+            f"{card}")
+        # test_fpv 6 of each video's 8 frames: the validation and test splits
+        # resample, 36 frames each
+        runs.run(root, *_engine_configs(root, "UDR18", f"chip-smoke-{os.getpid()}", root=tree,
+                                        log_steps=1, val_steps=3, test_fpv=6))
+        losses, aucs, scored = runs.check(root, n_iters=9, eval_lines=4)
+        if not (all("EER" in ln and "HTER" in ln for ln in scored) and "APCER" in scored[-1]):
+            raise AssertionError(f"[engine-ocim] Eval Step / Test lines {scored}")
+        trained, tested, again = (x[0] for x in runs.runs)
+        bs = trained.data_cfg["train_batch_size"]
+        n_streams = len(trained.batchers)
+        r = runs.rates(n_streams * bs)
+        val_loads = [s * 1e3 for n, s in runs.loads if n == trained.val_batch_size]
+        test_loads = [s * 1e3 for n, s in runs.loads if n == tested.test_batch_size]
+        val_ms = [s * 1e3 / b for b, s in runs.evals]
+        log(f"[engine-ocim] python -m unidefense_torch.main --engine OCIM: UDR18 256^2 "
+            f"b{n_streams // 2 * bs}+{n_streams // 2 * bs} ({n_streams} streams of {bs}) bf16 "
+            f"on {trained.device}, {trained.state.step} steps + test + resume to "
+            f"{again.state.step}: steps 2-6, each between two synchronises, data waits "
+            f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
+            f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
+            f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
+            f"starts) beside [train-udr18] {TRAIN_RATES.get('train-udr18', float('nan')):.2f} "
+            f"img/s for the bare step at b10+10; host decode p50 "
+            f"{statistics.median(runs.batches) * 1e3:.2f} ms per step ({n_streams} {bs}-frame stream "
+            f"loads: FrameStore reads, header sizes, 4p crop, RandomResizedCrop, bicubic "
+            f"480x360 crops -> 256^2; {len(runs.batches)} steps), "
+            f"{statistics.median(val_loads):.2f} ms per b64 validation batch, "
+            f"{statistics.median(test_loads):.2f} ms per b96 test batch (bilinear); validation "
+            f"and test {[round(v, 2) for v in val_ms]} ms per batch with its decode; peak memory "
+            f"{runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs]} s; {card}")
+        log(f"[engine-ocim] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
+            f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
+            f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
+            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
+            f"{card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs.totals
 
 
 def phase_bench(card: str) -> tuple[int, int]:
@@ -1388,10 +1641,11 @@ def main() -> int:
         phase_parity(card, weights, model, tag=f"parity-{tag}")
         trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
+    trained["engine-ocim"] = phase_engine_ocim(card)
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
-    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the FE engine's
-    # three runs (their steps and eval batches)
+    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the FE and OCIM
+    # engines' three runs each (their steps and eval batches)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))
     by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}

@@ -251,15 +251,14 @@ def test_build_transforms_matches_jax():
     assert np.abs(got.astype(int) - jh(np.ascontiguousarray(decoded))).max() <= 1
 
 
-@pytest.mark.parametrize("name", ["RandomResizedCrop", "ImageCompression", "GaussianBlur",
-                                  "GaussNoise", "RandomBrightnessContrast", "ColorJitter",
-                                  "OneOf"])
+@pytest.mark.parametrize("name", ["ImageCompression", "GaussianBlur", "GaussNoise",
+                                  "RandomBrightnessContrast", "ColorJitter", "OneOf"])
 def test_unported_transforms_raise(name):
     with pytest.raises(NotImplementedError, match="queue 3"):
         ttf.build_transforms([{"name": name, "params": {"height": 8, "width": 8}}])
 
 
-@pytest.mark.parametrize("name", ["CDF", "WDF", "OCIM", "UniAttack"])
+@pytest.mark.parametrize("name", ["CDF", "WDF", "UniAttack"])
 def test_unported_datasets_raise(name):
     with pytest.raises(NotImplementedError, match="queue 3"):
         tds.get_dataset(name)({}, "train")

@@ -240,14 +240,16 @@ def test_weight_files_follow_jax(fe_config, tmp_path):
         _engine(fe_config, id="init", init_weights=str(pth))
 
 
-def _spread_bottleneck(engine, v):
+def _spread_bottleneck(engine, v, load_kwargs=None):
     """Set the bottleneck's running statistics in ``v`` to the mean and
     variance of its inputs over the validation frames (read by the port's
-    model), so the probabilities differ per frame without saturating."""
+    model, loaded with ``load_kwargs``), so the probabilities differ per
+    frame without saturating."""
     model, val = engine.state.model, engine.val_set
     seen = []
     hook = model.bottleneck.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
-    frames = val.load_item(val.images, val.targets, crop="nocrop")["images"]
+    frames = val.load_item(val.images, val.targets,
+                           **(load_kwargs or {"crop": "nocrop"}))["images"]
     model.eval()
     try:
         engine.eval_step(torch.from_numpy(frames))
@@ -334,7 +336,6 @@ def test_cli_refuses_what_is_not_ported(fe_config, tmp_path):
         yaml.safe_dump({k: v for k, v in fe_config.items() if k != "cfg_path"}, f)
     for argv, error, match in (
             (["--engine", "FE", "--num_devices", "2"], NotImplementedError, "queue 4"),
-            (["--engine", "OCIM"], KeyError, "queue 3"),
             (["--engine", "UE"], KeyError, "queue 3")):
         with pytest.raises(error, match=match):
             tmain.main(["--config", str(cfg_path), *argv])

@@ -1,4 +1,4 @@
-// host_jpeg — batched JPEG decode + crop + bilinear resize, and JPEG encode,
+// host_jpeg — batched JPEG decode + crop + resize, frame sizes, and JPEG encode,
 // for the port's host data path (unidefense_tpu's native/udjpeg.cc and the
 // cv2.imencode of its transforms).
 //
@@ -22,10 +22,12 @@
 // from it only where nvJPEG's IDCT rounds otherwise. Other layouts (grey,
 // 4:4:0, 4:1:1) take the library's own RGB output.
 //
-// Resize: bilinear, half-pixel centres (cv2.resize INTER_LINEAR's grid).
+// Resize: bilinear or bicubic, half-pixel centres (cv2.resize's grid for
+// INTER_LINEAR and INTER_CUBIC).
 
 #include <algorithm>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -175,6 +177,76 @@ void resize_bilinear(const uint8_t* src, int h_in, int w_in, uint8_t* dst,
   }
 }
 
+// The four taps of each output position along one axis for cv2's
+// INTER_CUBIC: Keys's kernel with A = -0.75 (interpolateCubic), source
+// positions from cv2's double-precision scale, taps clamped to the edge.
+void cubic_taps(int n_in, int n_out, std::vector<int>* at, std::vector<float>* weight) {
+  const double scale = 1.0 / (static_cast<double>(n_out) / n_in);
+  at->resize(static_cast<size_t>(n_out) * 4);
+  weight->resize(static_cast<size_t>(n_out) * 4);
+  const float a = -0.75f;
+  for (int d = 0; d < n_out; ++d) {
+    float f = static_cast<float>((d + 0.5) * scale - 0.5);
+    const int s = static_cast<int>(std::floor(f));
+    f -= static_cast<float>(s);
+    float* w = weight->data() + static_cast<size_t>(d) * 4;
+    w[0] = ((a * (f + 1) - 5 * a) * (f + 1) + 8 * a) * (f + 1) - 4 * a;
+    w[1] = ((a + 2) * f - (a + 3)) * f * f + 1;
+    w[2] = ((a + 2) * (1 - f) - (a + 3)) * (1 - f) * (1 - f) + 1;
+    w[3] = 1.f - w[0] - w[1] - w[2];
+    for (int k = 0; k < 4; ++k) {
+      (*at)[static_cast<size_t>(d) * 4 + k] = std::min(std::max(s - 1 + k, 0), n_in - 1);
+    }
+  }
+}
+
+// Bicubic resize RGB u8 (h_in, w_in) -> (h_out, w_out) as cv2.resize's
+// INTER_CUBIC computes it for 8-bit frames: float weights, a horizontal pass
+// into float rows, a vertical pass, then round to nearest and saturate.
+void resize_cubic(const uint8_t* src, int h_in, int w_in, uint8_t* dst, int h_out, int w_out) {
+  if (h_in == h_out && w_in == w_out) {
+    std::memcpy(dst, src, static_cast<size_t>(h_in) * w_in * 3);
+    return;
+  }
+  std::vector<int> xs, ys;
+  std::vector<float> wx, wy;
+  cubic_taps(w_in, w_out, &xs, &wx);
+  cubic_taps(h_in, h_out, &ys, &wy);
+  const size_t row = static_cast<size_t>(w_out) * 3;
+  std::vector<float> rows(static_cast<size_t>(h_in) * row);
+  for (int y = 0; y < h_in; ++y) {
+    const uint8_t* s = src + static_cast<size_t>(y) * w_in * 3;
+    float* r = rows.data() + static_cast<size_t>(y) * row;
+    for (int x = 0; x < w_out; ++x) {
+      const int* at = xs.data() + static_cast<size_t>(x) * 4;
+      const float* w = wx.data() + static_cast<size_t>(x) * 4;
+      for (int c = 0; c < 3; ++c) {
+        float v = s[at[0] * 3 + c] * w[0];
+        v += s[at[1] * 3 + c] * w[1];
+        v += s[at[2] * 3 + c] * w[2];
+        v += s[at[3] * 3 + c] * w[3];
+        r[x * 3 + c] = v;
+      }
+    }
+  }
+  for (int y = 0; y < h_out; ++y) {
+    const int* at = ys.data() + static_cast<size_t>(y) * 4;
+    const float* w = wy.data() + static_cast<size_t>(y) * 4;
+    const float* r0 = rows.data() + static_cast<size_t>(at[0]) * row;
+    const float* r1 = rows.data() + static_cast<size_t>(at[1]) * row;
+    const float* r2 = rows.data() + static_cast<size_t>(at[2]) * row;
+    const float* r3 = rows.data() + static_cast<size_t>(at[3]) * row;
+    uint8_t* o = dst + static_cast<size_t>(y) * row;
+    for (size_t i = 0; i < row; ++i) {
+      float v = r0[i] * w[0];
+      v += r1[i] * w[1];
+      v += r2[i] * w[2];
+      v += r3[i] * w[3];
+      o[i] = clamp255(static_cast<int>(std::lrint(v)));
+    }
+  }
+}
+
 #if defined(UD_JPEG_LIBJPEG)
 
 const char kBackend[] = "libjpeg";
@@ -265,6 +337,25 @@ struct Decoder {
     return true;
   }
 };
+
+// The frame's size from its header alone.
+bool read_dims(const uint8_t* blob, size_t size, int /*device*/, int* height, int* width) {
+  jpeg_decompress_struct cinfo;
+  ErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.setjmp_buffer)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(blob), size);
+  jpeg_read_header(&cinfo, TRUE);
+  *height = static_cast<int>(cinfo.image_height);
+  *width = static_cast<int>(cinfo.image_width);
+  jpeg_destroy_decompress(&cinfo);
+  return true;
+}
 
 // Baseline JPEG of an RGB frame (libjpeg's defaults: 4:2:0 chroma, as
 // cv2.imencode); returns the length, 0 on failure, or -needed if cap is short.
@@ -460,6 +551,23 @@ struct Decoder {
   }
 };
 
+// The frame's size from its header alone (nvjpegGetImageInfo).
+bool read_dims(const uint8_t* blob, size_t size, int device, int* height, int* width) {
+  if (cudaSetDevice(device) != cudaSuccess) return false;
+  nvjpegHandle_t handle = shared_handle(device);
+  if (handle == nullptr) return false;
+  int components = 0;
+  nvjpegChromaSubsampling_t subsampling;
+  int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+  if (nvjpegGetImageInfo(handle, blob, size, &components, &subsampling, widths, heights) !=
+      NVJPEG_STATUS_SUCCESS) {
+    return false;
+  }
+  *height = heights[0];
+  *width = widths[0];
+  return true;
+}
+
 // Baseline JPEG, 4:2:0 chroma (cv2.imencode's default), one at a time.
 long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t cap, int device) {
   static std::mutex mutex;
@@ -530,12 +638,14 @@ const char* ud_jpeg_backend() { return kBackend; }
 
 // Decode `n` JPEG blobs, optionally crop each to boxes[i] = (x1, y1, x2, y2)
 // (clamped; nullptr or x2 <= x1 for the full frame), resize to (out_h,
-// out_w) and write RGB u8 into out (n * out_h * out_w * 3). `device` is the
-// CUDA device of the nvJPEG backend. Returns the number of images decoded;
-// a slot that failed is zero-filled.
+// out_w) with `interp` (cv2's codes: 1 bilinear, 2 bicubic) and write RGB u8
+// into out (n * out_h * out_w * 3). `device` is the CUDA device of the
+// nvJPEG backend. Returns the number of images decoded, a slot that failed
+// zero-filled; -1 for another interp.
 int ud_decode_batch(const uint8_t** blobs, const size_t* sizes, int n,
                     const int* boxes, int out_h, int out_w, uint8_t* out,
-                    int n_threads, int device) {
+                    int n_threads, int device, int interp) {
+  if (interp != 1 && interp != 2) return -1;
   std::atomic<int> next(0), ok(0);
   const size_t frame = static_cast<size_t>(out_h) * out_w * 3;
   auto worker = [&]() {
@@ -569,7 +679,11 @@ int ud_decode_batch(const uint8_t** blobs, const size_t* sizes, int n,
           src = cropped.data();
         }
       }
-      resize_bilinear(src, ch, cw, dst, out_h, out_w);
+      if (interp == 2) {
+        resize_cubic(src, ch, cw, dst, out_h, out_w);
+      } else {
+        resize_bilinear(src, ch, cw, dst, out_h, out_w);
+      }
       ok.fetch_add(1);
     }
   };
@@ -579,6 +693,24 @@ int ud_decode_batch(const uint8_t** blobs, const size_t* sizes, int n,
   for (int t = 0; t < threads; ++t) pool.emplace_back(worker);
   for (auto& th : pool) th.join();
   return ok.load();
+}
+
+// Read the (height, width) of `n` JPEG blobs from their headers into
+// dims[2 * i], dims[2 * i + 1]. Returns the number read; a blob whose header
+// does not parse gets (0, 0).
+int ud_jpeg_dims(const uint8_t** blobs, const size_t* sizes, int n, int* dims, int device) {
+  int ok = 0;
+  for (int i = 0; i < n; ++i) {
+    int h = 0, w = 0;
+    if (read_dims(blobs[i], sizes[i], device, &h, &w)) {
+      ++ok;
+    } else {
+      h = w = 0;
+    }
+    dims[2 * i] = h;
+    dims[2 * i + 1] = w;
+  }
+  return ok;
 }
 
 // Encode one RGB u8 frame (h, w, 3) at `quality` into out (cap bytes).

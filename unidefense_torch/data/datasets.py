@@ -11,21 +11,23 @@ exposes:
   the host JPEG library per batch (data/native.py); normalisation and flip
   run later on the card (data/transforms.DevicePipeline, K1).
 
-Ported: FF++ (``FFpp``). Celeb-DF, WildDeepfake, OCIM and UniAttack raise
-an error naming ROADMAP.md queue 3.
+Ported: FF++ (``FFpp``) and OCIM (``OCIM``: Oulu-NPU, CASIA-FASD, Idiap
+Replay-Attack and MSU-MFSD, face crops from 5-point boxes). Celeb-DF,
+WildDeepfake and UniAttack raise an error naming ROADMAP.md queue 3.
 Blob storage: files under ``root``, a FrameStore (.udb) or LMDB
 (data/store.open_blob_source).
 """
 
 from __future__ import annotations
 
+import copy
 import pickle
 from os.path import join
 
 import numpy as np
 import torch
 
-from unidefense_torch.data.native import decode_batch
+from unidefense_torch.data.native import decode_batch, jpeg_dims
 from unidefense_torch.data.store import open_blob_source
 from unidefense_torch.data.transforms import LockedRNG, build_transforms
 
@@ -144,9 +146,27 @@ class AbstractDataset:
             return (-1, -1, -1, -1)
         raise ValueError(f"Unsupported crop version '{crop}'")
 
+    def _source_boxes(self, boxes: np.ndarray, dims: np.ndarray) -> np.ndarray:
+        """Each frame's box clamped to the frame, as the JAX package's
+        ``_crop`` slices it (the whole frame for x2 <= x1), composed with
+        the box the host stage draws inside that crop, in item order: the
+        one region of each frame that the stage resizes."""
+        out = np.empty_like(boxes)
+        for i, ((x1, y1, x2, y2), (h, w)) in enumerate(zip(boxes.tolist(), dims.tolist())):
+            if x2 <= x1:
+                x1, y1, x2, y2 = 0, 0, w, h
+            else:
+                x1, y1, x2, y2 = max(0, x1), max(0, y1), min(w, x2), min(h, y2)
+            bx1, by1, bx2, by2 = self.host_tf.crop_box(y2 - y1, x2 - x1)
+            out[i] = (x1 + bx1, y1 + by1, x1 + bx2, y1 + by2)
+        return out
+
     def load_item(self, items, labels, margin=None, crop="4p"):
         """Decode + crop + resize a batch on the host: one call of the host
-        JPEG library for the whole batch."""
+        JPEG library for the whole batch. With RandomResizedCrop the frames'
+        sizes come from their headers first, so that each crop box is drawn
+        here and the library crops once and resizes with the stage's
+        interpolation."""
         paths, contents_list = [], []
         for item in items:
             contents = str(item).split(" ")
@@ -157,7 +177,10 @@ class AbstractDataset:
             margin = self._resolve_margin(margin)  # one draw per batch
         blobs = [self._read_blob(p) for p in paths]
         boxes = np.asarray([self._box_for(c, margin, crop) for c in contents_list], np.int32)
-        images = decode_batch(blobs, boxes, self.host_tf.height, self.host_tf.width)
+        host = self.host_tf
+        if host.rrc_scale is not None:
+            boxes = self._source_boxes(boxes, jpeg_dims(blobs))
+        images = decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
         return {"images": images, "path": paths}
 
 
@@ -193,6 +216,51 @@ class FaceForensics(AbstractDataset):
         self.targets = [0 if "original_sequences" in p else 1 for p in indices]
 
 
+class OCIMSubDataset(AbstractDataset):
+    """One (domain, label) slice of the OCIM anti-spoofing protocol
+    (dataset/ocim.py:11-50): 5-point box list pickles under
+    <root>/<domain_root>/lists/."""
+
+    DATASETS = ["O", "C", "I", "M"]
+    SPLITS = ["train", "dev", "test"]
+    LABELS = ["real", "fake", "both"]
+
+    def __init__(self, cfg: dict, split: str, label: str, seed: int = 2022):
+        if split not in self.SPLITS:
+            raise ValueError(f"split must be one of {self.SPLITS}")
+        if label not in self.LABELS:
+            raise ValueError(f"label must be one of {self.LABELS}")
+        dataset = cfg[split + "_dataset"]
+        if dataset not in self.DATASETS:
+            raise ValueError(f"dataset must be one of {self.DATASETS}")
+        super().__init__(cfg, split, seed)
+        self.categories = ["real", "attack"]
+        lists_dir = join(self.root, cfg[dataset + "_root"], "lists")
+        fpv = cfg.get(f"{split}_fpv")
+        for lb in ["real", "fake"] if label == "both" else [label]:
+            lst = _load_index(join(lists_dir, f"{lb}_5points.pickle"))
+            if fpv is not None:
+                lst = self._resample(lst, fpv)
+            self.images.extend(lst)
+            self.targets.extend([0 if lb == "real" else 1] * len(lst))
+
+
+class OCIMDataset:
+    """A real and a fake sub-dataset per source domain (dataset/ocim.py:
+    52-60): even index real, odd fake, the order the OCIM engine's streams
+    follow (engine/ocim_engine.py:245-252)."""
+
+    def __init__(self, cfg: dict, split: str, seed: int = 2022):
+        self.datasets = []
+        domains = cfg[split + "_dataset"]
+        self.num_domains = len(domains)
+        for ds in domains:
+            ds_cfg = copy.deepcopy(cfg)
+            ds_cfg[split + "_dataset"] = ds
+            self.datasets.append(OCIMSubDataset(ds_cfg, split, "real", seed))
+            self.datasets.append(OCIMSubDataset(ds_cfg, split, "fake", seed))
+
+
 def _not_ported(name):
     def refuse(*args, **kwargs):
         raise NotImplementedError(f"Dataset '{name}' is not ported to unidefense_torch yet "
@@ -204,7 +272,7 @@ LOADERS = {
     "FFpp": FaceForensics,
     "CDF": _not_ported("CDF"),
     "WDF": _not_ported("WDF"),
-    "OCIM": _not_ported("OCIM"),
+    "OCIM": OCIMDataset,
     "UniAttack": _not_ported("UniAttack"),
 }
 

@@ -1,10 +1,12 @@
 """ctypes binding of the host JPEG library (``csrc/host_jpeg.cc``;
 unidefense_tpu/data/native.py:21-122).
 
-``decode_batch(blobs, boxes, out_h, out_w)`` decodes a whole batch of JPEG
-frames on a pool of threads, crop and bilinear resize included, into one
-contiguous uint8 NHWC array; ``encode_jpeg(frame, quality)`` is the
-counterpart of ``cv2.imencode('.jpg', ...)``. The library is built with
+``decode_batch(blobs, boxes, out_h, out_w, interp)`` decodes a whole batch
+of JPEG frames on a pool of threads, crop and resize (bilinear, or bicubic
+as cv2's INTER_CUBIC) included, into one contiguous uint8 NHWC array;
+``jpeg_dims(blobs)`` reads the frames' sizes from their headers;
+``encode_jpeg(frame, quality)`` is the counterpart of
+``cv2.imencode('.jpg', ...)``. The library is built with
 ``g++`` at first use (``ops/_build.host_library``) against libjpeg where its
 header is found, else against nvJPEG. There is no cv2 fallback: a frame that
 is not a JPEG raises.
@@ -32,7 +34,12 @@ def get_lib() -> ctypes.CDLL:
     lib.ud_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.ud_jpeg_dims.restype = ctypes.c_int
+    lib.ud_jpeg_dims.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_size_t), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
     ]
     lib.ud_encode_jpeg.restype = ctypes.c_long
     lib.ud_encode_jpeg.argtypes = [
@@ -56,20 +63,31 @@ def _is_jpeg(blob: bytes) -> bool:
     return len(blob) > 2 and blob[0] == 0xFF and blob[1] == 0xD8
 
 
+def _check_jpeg(blobs: Sequence[bytes]) -> None:
+    if not all(_is_jpeg(b) for b in blobs):
+        raise NotImplementedError("the port decodes JPEG frames only; other formats (the PNG "
+                                  "frames of Celeb-DF) are ROADMAP.md queue 3")
+
+
+INTER_LINEAR, INTER_CUBIC = 1, 2  # cv2's codes of the two resizes, as the YAMLs give them
+
+
 def decode_batch(blobs: Sequence[bytes], boxes: Optional[np.ndarray], out_h: int, out_w: int,
-                 n_threads: int = 0) -> np.ndarray:
+                 n_threads: int = 0, interp: int = INTER_LINEAR) -> np.ndarray:
     """Decode JPEG frames to (N, out_h, out_w, 3) RGB uint8.
 
     boxes: int32 (N, 4) [x1, y1, x2, y2] crop rectangles (x2 <= x1 = no
-    crop), or None. Raises NotImplementedError for a frame that is not a
-    JPEG and IOError for one that does not decode."""
+    crop), or None. interp: cv2's code of the resize, 1 (bilinear) or 2
+    (bicubic). Raises NotImplementedError for a frame that is not a JPEG or
+    another interp, and IOError for a frame that does not decode."""
+    if interp not in (INTER_LINEAR, INTER_CUBIC):
+        raise NotImplementedError(f"interpolation {interp}: the host library resizes with 1 "
+                                  "(bilinear) or 2 (bicubic)")
     n = len(blobs)
     out = np.empty((n, out_h, out_w, 3), np.uint8)
     if n == 0:
         return out
-    if not all(_is_jpeg(b) for b in blobs):
-        raise NotImplementedError("the port decodes JPEG frames only; other formats (the PNG "
-                                  "frames of Celeb-DF) are ROADMAP.md queue 3")
+    _check_jpeg(blobs)
     lib = get_lib()
     if n_threads <= 0:
         n_threads = min(os.cpu_count() or 1, n)
@@ -81,10 +99,26 @@ def decode_batch(blobs: Sequence[bytes], boxes: Optional[np.ndarray], out_h: int
         boxes_ptr = boxes_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
     ok = lib.ud_decode_batch(blob_ptrs, sizes, n, boxes_ptr, out_h, out_w,
                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_threads,
-                             _device())
+                             _device(), int(interp))
     if ok != n:
         raise IOError(f"{backend()} decoded {ok} of {n} JPEG frames")
     return out
+
+
+def jpeg_dims(blobs: Sequence[bytes]) -> np.ndarray:
+    """(N, 2) int32 (height, width) of JPEG frames, read from their headers
+    without decoding. Raises IOError for a header that does not parse."""
+    n = len(blobs)
+    dims = np.zeros((n, 2), np.int32)
+    if n == 0:
+        return dims
+    _check_jpeg(blobs)
+    ok = get_lib().ud_jpeg_dims((ctypes.c_char_p * n)(*blobs),
+                                (ctypes.c_size_t * n)(*[len(b) for b in blobs]), n,
+                                dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), _device())
+    if ok != n:
+        raise IOError(f"{backend()} read {ok} of {n} JPEG headers")
+    return dims
 
 
 def encode_jpeg(frame: np.ndarray, quality: int = 95) -> bytes:

@@ -3,23 +3,25 @@ YAML list, split into a host stage (decode, crop, resize to the fixed size)
 and a device stage (K1: /255, mean/std and the horizontal flip on the whole
 uint8 batch).
 
-Ported: Resize, HorizontalFlip and Normalize, the transforms of every
-config_template/forgery/data_*.yml. RandomResizedCrop, ImageCompression,
-the distorted OneOf and the device corruptions (GaussianBlur, GaussNoise,
-RandomBrightnessContrast, ColorJitter, OneOf) raise NotImplementedError
-(ROADMAP.md queue 3).
+Ported: Resize, RandomResizedCrop (its box drawn here, the crop and the
+bilinear or bicubic resize run in the host JPEG library), HorizontalFlip
+and Normalize, the transforms of every config_template/forgery/data_*.yml
+and ocim/data_*.yml. ImageCompression, the distorted OneOf and the device
+corruptions (GaussianBlur, GaussNoise, RandomBrightnessContrast,
+ColorJitter, OneOf) raise NotImplementedError (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unidefense_torch.data.native import INTER_CUBIC, INTER_LINEAR
 from unidefense_torch.ops.preprocess import normalize_flip
 
 _QUEUE_3 = "is not ported to unidefense_torch yet (ROADMAP.md queue 3)"
@@ -54,12 +56,18 @@ class LockedRNG:
         return locked
 
 
-def resize_bilinear(frames_u8: np.ndarray, height: int, width: int) -> np.ndarray:
-    """(N, H, W, 3) uint8 -> (N, height, width, 3) uint8: bilinear with
-    half-pixel centres (align_corners=False), rounded and clamped. Within
-    one intensity level of ``cv2.resize``'s INTER_LINEAR, with no cv2."""
+_MODES = {INTER_LINEAR: "bilinear", INTER_CUBIC: "bicubic"}
+
+
+def resize_plain(frames_u8: np.ndarray, height: int, width: int,
+                 interp: int = INTER_LINEAR) -> np.ndarray:
+    """(N, H, W, 3) uint8 -> (N, height, width, 3) uint8: bilinear or bicubic
+    (A = -0.75, edges replicated) with half-pixel centres
+    (align_corners=False), rounded and clamped. Within one intensity level
+    of ``cv2.resize``'s INTER_LINEAR or INTER_CUBIC, with no cv2: the plain
+    version of the host JPEG library's resize."""
     x = torch.from_numpy(np.ascontiguousarray(frames_u8)).permute(0, 3, 1, 2).float()
-    y = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False)
+    y = F.interpolate(x, size=(height, width), mode=_MODES[interp], align_corners=False)
     return y.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
 
 
@@ -90,13 +98,53 @@ class DevicePipeline:
 
 @dataclass
 class HostPipeline:
-    """The host stage's fixed output size (unidefense_tpu/data/
-    transforms.py:155-249). The port's stage is a plain resize after the
-    crop, which the datasets run inside the host JPEG library's batched
-    decode."""
+    """The host stage (unidefense_tpu/data/transforms.py:153-290): the fixed
+    output size and, for RandomResizedCrop (albumentations semantics), the
+    area scale range, the aspect ratio range, the probability, cv2's
+    interpolation code and the stream the boxes are drawn from. The port
+    draws each box here, in the JAX package's order, and the datasets run
+    the crop and the resize inside the host JPEG library's batched decode."""
 
     height: int = 256
     width: int = 256
+    rrc_scale: Optional[tuple[float, float]] = None
+    rrc_ratio: tuple = (0.75, 4.0 / 3.0)
+    rrc_p: float = 1.0
+    interpolation: int = INTER_LINEAR
+    rng: Any = field(default_factory=lambda: LockedRNG(2022))
+
+    def _random_resized_crop(self, h: int, w: int) -> tuple[int, int, int, int]:
+        """(x, y, cw, ch) of the crop of an h x w frame: the draws of
+        unidefense_tpu's ``_random_resized_crop``, then its centre-crop
+        fallback after 10 tries."""
+        area = h * w
+        for _ in range(10):
+            target_area = self.rng.uniform(*self.rrc_scale) * area
+            log_ratio = (np.log(self.rrc_ratio[0]), np.log(self.rrc_ratio[1]))
+            aspect = np.exp(self.rng.uniform(*log_ratio))
+            cw = int(round(np.sqrt(target_area * aspect)))
+            ch = int(round(np.sqrt(target_area / aspect)))
+            if 0 < cw <= w and 0 < ch <= h:
+                x = int(self.rng.integers(0, w - cw + 1))
+                y = int(self.rng.integers(0, h - ch + 1))
+                return x, y, cw, ch
+        in_ratio = w / h
+        if in_ratio < self.rrc_ratio[0]:
+            cw, ch = w, int(round(w / self.rrc_ratio[0]))
+        elif in_ratio > self.rrc_ratio[1]:
+            cw, ch = int(round(h * self.rrc_ratio[1])), h
+        else:
+            cw, ch = w, h
+        return (w - cw) // 2, (h - ch) // 2, cw, ch
+
+    def crop_box(self, h: int, w: int) -> tuple[int, int, int, int]:
+        """(x1, y1, x2, y2) within an h x w frame that the stage keeps: the
+        RandomResizedCrop box when it applies (one ``rng.random()`` against
+        p first, as the JAX stage draws), else the whole frame."""
+        if self.rrc_scale is not None and self.rng.random() < self.rrc_p:
+            x, y, cw, ch = self._random_resized_crop(h, w)
+            return x, y, x + cw, y + ch
+        return 0, 0, w, h
 
 
 def build_transforms(cfg_list: list[dict], corrupt_distorted: bool = False):
@@ -113,12 +161,23 @@ def build_transforms(cfg_list: list[dict], corrupt_distorted: bool = False):
         if name == "Resize":
             host.height = int(params["height"])
             host.width = int(params["width"])
+        elif name == "RandomResizedCrop":
+            host.height = int(params["height"])
+            host.width = int(params["width"])
+            host.rrc_scale = tuple(params.get("scale", (0.08, 1.0)))
+            host.rrc_ratio = tuple(params.get("ratio", (0.75, 4.0 / 3.0)))
+            host.rrc_p = float(params.get("p", 1.0))
+            host.interpolation = int(params.get("interpolation", INTER_LINEAR))
+            if host.interpolation not in _MODES:
+                raise NotImplementedError(
+                    f"RandomResizedCrop interpolation {host.interpolation}: the port resizes "
+                    f"with {INTER_LINEAR} (linear) or {INTER_CUBIC} (cubic)")
         elif name == "HorizontalFlip":
             dev_kwargs["hflip_p"] = float(params.get("p", 0.5))
         elif name == "Normalize":
             dev_kwargs["mean"] = tuple(params.get("mean", (0.5, 0.5, 0.5)))
             dev_kwargs["std"] = tuple(params.get("std", (0.5, 0.5, 0.5)))
-        elif name in ("RandomResizedCrop", "ImageCompression", "GaussianBlur", "GaussNoise",
+        elif name in ("ImageCompression", "GaussianBlur", "GaussNoise",
                       "RandomBrightnessContrast", "ColorJitter", "OneOf"):
             raise NotImplementedError(f"Transform '{name}' {_QUEUE_3}")
         else:

@@ -1,14 +1,16 @@
 """Engine registry (unidefense_tpu/engines/__init__.py; the reference's
-engine/__init__.py:6-14). The OCIM and UniAttack engines are not ported
-yet (ROADMAP.md queue 3)."""
+engine/__init__.py:6-14). The UniAttack engine is not ported yet
+(ROADMAP.md queue 3)."""
 
 from unidefense_torch.engines.base import AbstractEngine
 from unidefense_torch.engines.forgery import ForgeryEngine
+from unidefense_torch.engines.ocim import OCIMEngine
 
 ENGINE = {
     "FE": ForgeryEngine,
+    "OCIM": OCIMEngine,
 }
-_NOT_PORTED = ("OCIM", "UE")
+_NOT_PORTED = ("UE",)
 
 
 def get_engine(name: str = "FE"):
@@ -20,4 +22,4 @@ def get_engine(name: str = "FE"):
     return ENGINE[name]
 
 
-__all__ = ["AbstractEngine", "ForgeryEngine", "ENGINE", "get_engine"]
+__all__ = ["AbstractEngine", "ForgeryEngine", "OCIMEngine", "ENGINE", "get_engine"]

@@ -9,7 +9,8 @@ unless the caller passes ``device`` (the tests pass ``"cpu"``).
 
 Randomness is indexed, as the JAX package's ``fold_in`` is: the train step
 ``s`` draws its flips, perturbation and dropout masks from a generator
-seeded from (seed, 12345, s), and eval batch ``b`` from (seed, 777, b); so
+seeded from (seed, stream, s) (stream 12345 in FE, 54321 in OCIM), and
+eval batch ``b`` from (seed, 777, b); so
 a resumed run draws what an uninterrupted one would, with no generator
 state saved.
 
@@ -37,7 +38,8 @@ from unidefense_torch.utils.logging import TrainLogger
 from unidefense_torch.utils.meters import Logger, Timer, center_print
 from unidefense_torch.utils.metrics import merge_video_dicts
 
-TRAIN_STREAM = 12345  # fold_in(base_rng, 12345) of the JAX engines' train loop
+TRAIN_STREAM = 12345  # fold_in(base_rng, 12345) of the JAX forgery engine's train loop
+OCIM_TRAIN_STREAM = 54321  # fold_in(base_rng, 54321) of the JAX OCIM engine's train loop
 EVAL_STREAM = 777  # fold_in(base_rng, 777) of score_dataset
 
 
@@ -427,7 +429,11 @@ class AbstractEngine:
         )
 
     def _batchers(self) -> list:
-        """The engine's training InfiniteBatchers (for resume fast-forward)."""
+        """The engine's training InfiniteBatchers (for resume fast-forward):
+        its ``batchers`` where it has a list of streams (OCIM's per-domain
+        streams), else its real and fake streams."""
+        if hasattr(self, "batchers"):
+            return list(self.batchers)
         return [getattr(self, name) for name in ("real_batcher", "fake_batcher")
                 if hasattr(self, name)]
 

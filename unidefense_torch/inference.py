@@ -14,7 +14,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from unidefense_torch.data.transforms import DevicePipeline, resize_bilinear
+from unidefense_torch.data.transforms import DevicePipeline, resize_plain
 from unidefense_torch.device import DeviceLike, resolve_device
 from unidefense_torch.models.convert import state_dict_from_jax
 from unidefense_torch.models.registry import build_model
@@ -22,9 +22,9 @@ from unidefense_torch.train.step import make_eval_step
 
 
 def resize_frames(frames_u8: np.ndarray, size: int) -> np.ndarray:
-    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8 (``resize_bilinear``):
+    """(N, H, W, 3) uint8 -> (N, size, size, 3) uint8 (``resize_plain``):
     within one intensity level of ``cv2.resize``'s INTER_LINEAR."""
-    return resize_bilinear(frames_u8, size, size)
+    return resize_plain(frames_u8, size, size)
 
 
 class Predictor:

@@ -2,6 +2,7 @@
 
     python -m unidefense_torch.main --config config_template/forgery/model_udeb4.yml --engine FE
     python -m unidefense_torch.main --config ... --engine FE --test
+    python -m unidefense_torch.main --config config_template/ocim/model_udr18.yml --engine OCIM
 
 The same flags as the JAX CLI (--config, --engine {FE,OCIM,UE},
 --local_rank/-r, --exp_id, --ds_config, --offline, --test, --num_devices).
