@@ -37,8 +37,22 @@ K2-bwd; and the OCIM engine the same way (``[engine-ocim]``): UDR18 at
 256x256, three source domains x (10 real + 10 fake), bf16, on a synthetic
 face anti-spoofing tree of FrameStores (480x360 JPEG frames, 4p face crops
 with a drawn margin, RandomResizedCrop with the host library's bicubic
-resize, held against torch's bicubic in its ``[jpeg]`` line). Any failure
-raises, so the exit code is not 0 and no result line is printed.
+resize, held against torch's bicubic in its ``[jpeg]`` line); the UE engine
+(``[engine-ue]``): UDEB4 at 380x380, 10 real + 10 fake, bf16
+(config_template/uniatt/Prot1/model_udeb4.yml and data_ffpp.yml), on a
+synthetic UniAttack tree of six FrameStores with frames of six sizes
+(Celeb-DF's PNG, as the reference lays it out), RandomResizedCrop with
+the bicubic resize, the frame EER threshold of the validation split
+applied to the test split, a ``--test`` run on the Protocol I distorted
+test split (the host OneOf on every b96 batch), and that validation on
+the card against the CPU from the same calibrated weights and batches,
+with its ``[jpeg]`` line holding ImageCompression's round trip against
+Pillow's (and each encoder's quantisation tables against IJG's), the host
+blur against a float64 one and the PNG decoder against Pillow's; and the
+device corruption route
+(``[corrupt]``: ``DevicePipeline(corrupt=True)`` on the card against the
+CPU with the same draws). Any failure raises, so the exit code is not 0
+and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -61,7 +75,8 @@ SEED = 0
 # config_template/forgery/data_ffc23.yml, ocim/data_m.yml (RandomResizedCrop
 # 256) and uniatt/Prot1/data_ffpp.yml (380); the [train*] phases take each
 # through the bare step at 10 real + 10 fake, the engines at their own
-# batches (FE: UDEB4 at 10 + 10; OCIM: UDR18 at 30 + 30, three domains)
+# batches (FE: UDEB4 at 10 + 10; OCIM: UDR18 at 30 + 30, three domains; UE:
+# UDEB4 at 10 + 10 from uniatt/Prot1/model_udeb4.yml)
 MODELS = {
     "UDEB4": ("config_template/forgery/model_udeb4.yml", 380),
     "UDR18": ("config_template/ocim/model_udr18.yml", 256),
@@ -244,7 +259,7 @@ def phase_k1(quick: bool, card: str) -> dict:
 
     batches = [(n, size) for size in (380, 256) for n in (32, 20)]
     # checked, not timed: the engines' batches, K1's tiles and grid follow
-    # the batch; FE's validation (b64) and test (b96) at 380^2, OCIM's
+    # the batch; FE's and UE's validation (b64) and test (b96) at 380^2, OCIM's
     # training (b60), validation and test at 256^2
     checked = batches + [(64, 380), (96, 380), (60, 256), (64, 256), (96, 256)]
     inputs = {}
@@ -463,8 +478,8 @@ def sfconv_kernels() -> list[dict]:
 
     return [
         # also_batches: the engines' forwards, {(model, res): batches}: FE's
-        # train (b20), validation (b64) and test (b96) of UDEB4, OCIM's train
-        # (b60), validation and test of UDR18
+        # and UE's train (b20), validation (b64) and test (b96) of UDEB4,
+        # OCIM's train (b60), validation and test of UDR18
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
              also_batches={("UDEB4", 380): (20, 64, 96), ("UDR18", 256): (60, 64, 96)},
              hilberts=1, streams=2, counts=fwd,
@@ -1177,14 +1192,16 @@ def _decoder_against_pillow(blob: bytes, size: int) -> str:
             f"q95 noise: {'; '.join(parts)}; a broken blob raises IOError")
 
 
-def _engine_configs(out_dir: str, model_name: str, run_id: str, **data) -> tuple[str, str]:
-    """``model_name``'s YAML and the data YAML it names, with the keys of
-    ``data`` set (the tree's root, the cadence), 6 steps and a fresh id,
-    written into ``out_dir``; and the same with resume on and 9 steps."""
+def _engine_configs(out_dir: str, model_name: str, run_id: str, model_yml: str = None,
+                    **data) -> tuple[str, str]:
+    """``model_name``'s YAML (or ``model_yml``) and the data YAML it names,
+    with the keys of ``data`` set (the tree's root, the cadence), 6 steps
+    and a fresh id, written into ``out_dir``; and the same with resume on
+    and 9 steps."""
     import yaml
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(repo, MODELS[model_name][0])) as f:
+    with open(os.path.join(repo, model_yml or MODELS[model_name][0])) as f:
         model = yaml.safe_load(f)
     with open(os.path.join(repo, model["data"]["file"])) as f:
         data_yml = yaml.safe_load(f)
@@ -1212,7 +1229,7 @@ class EngineRuns:
     every ``load_item`` and ``load_batch`` call and every ``score_dataset``
     are timed. Checks each run's device and launches: ``step_want`` per
     train step and ``eval_want`` per eval batch (K1, K2, K2-bwd, K3,
-    K3-bwd)."""
+    K3-bwd); and that every scored frame has a probability in [0, 1]."""
 
     def __init__(self, tag: str, engine: str, dataset_cls, engine_cls, step_want, eval_want):
         self.tag, self.engine = tag, engine
@@ -1225,7 +1242,7 @@ class EngineRuns:
         self.runs: list = []     # (engine, seconds, steps, eval batches) of every main()
         self.totals = (0,) * 5
 
-    def run(self, root: str, first: str, resumed: str):
+    def run(self, root: str, first: str, resumed: str, test_argv: tuple = ()):
         import torch
 
         from unidefense_torch import main as cli
@@ -1265,6 +1282,10 @@ class EngineRuns:
             out = score_dataset(engine, dataset, batch_size, *args, **kwargs)
             torch.cuda.synchronize()
             evals.append((-(-len(dataset) // batch_size), time.perf_counter() - t0))
+            probs = [p for video in out[0].values() for p in video]
+            if not (len(probs) == len(dataset) and all(0.0 <= p <= 1.0 for p in probs)):
+                raise AssertionError(f"[{self.tag}] {len(probs)} probabilities of "
+                                     f"{len(dataset)} frames, not all in [0, 1]")
             return out
 
         cwd, stdout = os.getcwd(), sys.stdout
@@ -1277,7 +1298,8 @@ class EngineRuns:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             common = ["--engine", self.engine, "--offline"]
-            for argv in (["--config", first, *common], ["--config", first, *common, "--test"],
+            for argv in (["--config", first, *common],
+                         ["--config", first, *common, *test_argv, "--test"],
                          ["--config", resumed, *common]):
                 n_steps, n_evals = len(steps), len(evals)
                 _reset_counts()
@@ -1312,9 +1334,9 @@ class EngineRuns:
     def check(self, root: str, n_iters: int, eval_lines: int) -> tuple[list, list, list]:
         """The first run's checkpoints, the ``n_iters`` Train Iter lines of
         its run directory (the first run's and the resumed run's) with finite
-        losses, ``eval_lines`` Eval Step and Test lines with an AUC in
-        [0, 1], and the resume from step 6 to 9: (losses, AUCs, those
-        lines)."""
+        losses, ``eval_lines`` Eval Step, Test Step (UE) and Test lines with
+        an AUC in [0, 1], and the resume from step 6 to 9: (losses, AUCs,
+        those lines)."""
         import numpy as np
 
         trained, _, again = (r[0] for r in self.runs)
@@ -1328,12 +1350,13 @@ class EngineRuns:
             test_out = f.read().splitlines()
         iters = [ln for ln in records if ln.startswith("Train Iter")]
         losses = [float(ln.split("Loss ")[1].split(",")[0]) for ln in iters]
-        scored = [ln for ln in records if ln.startswith("Eval Step")]
-        # the test report with its indented continuation lines
-        at = next(i for i, ln in enumerate(test_out) if ln.startswith("Test |"))
-        end = next((i for i in range(at + 1, len(test_out)) if not test_out[i][:1].isspace()),
-                   len(test_out))
-        scored.append(" ".join(ln.strip() for ln in test_out[at:end]))
+        reports = ("Eval Step", "Test Step", "Test |")
+        scored = [ln for ln in records if ln.startswith(reports)]
+        # the test run's reports, each with its indented continuation lines
+        for at in (i for i, ln in enumerate(test_out) if ln.startswith(reports)):
+            end = next((i for i in range(at + 1, len(test_out))
+                        if not test_out[i][:1].isspace()), len(test_out))
+            scored.append(" ".join(ln.strip() for ln in test_out[at:end]))
         aucs = [float(ln.split("AUC ")[1].split(",")[0]) for ln in scored]
         if not (len(iters) == n_iters and all(np.isfinite(losses))):
             raise AssertionError(f"[{self.tag}] Train Iter lines {iters}")
@@ -1578,6 +1601,569 @@ def phase_engine_ocim(card: str) -> tuple:
     return runs.totals
 
 
+# the synthetic UniAttack tree of [engine-ue]: the six sub-datasets as
+# config_template/uniatt/Prot1/data_ffpp.yml names them, each a FrameStore of
+# frames at its own (H, W) under the keys its loader reads with crop nocrop
+# (JPEG, and PNG for Celeb-DF as the reference lays it out), and its index
+# files
+UA_FRAMES = {"FFpp": (320, 320), "CDF": (320, 320), "SeqDF": (256, 256), "HQ": (300, 260),
+             "OULU": (400, 320), "SiWMv2": (360, 300)}
+UA_STORES = {"FFpp": "FaceForensics++", "CDF": "Celeb-DF", "SeqDF": "Seq-DeepFake",
+             "HQ": "HQ_WMCA", "OULU": "Oulu_NPU", "SiWMv2": "SiW-Mv2"}
+UA_HQ_ATTACKS = ("Flexiblemask", "Glasses", "Makeup", "Mannequin", "Papermask", "Replay",
+                 "Rigidmask", "Tattoo")
+
+
+def _write_uniattack(root: str, videos: int = 4, frames: int = 8) -> dict:
+    """The six sub-datasets under ``root`` of seeded noise frames: FF++ (real
+    and four methods, ``videos`` videos each, every split; q95 4:2:0 JPEG
+    by the port's encoder) and Celeb-DF (two real and two synthesis videos;
+    PNG by Pillow, under ``.png`` paths) of 320^2 frames under their paths;
+    Seq-DeepFake, HQ-WMCA (bona fide and the eight attacks, half-length
+    videos), Oulu-NPU and SiW-Mv2 training frames of four other sizes, JPEG,
+    under their ``_crop`` keys. Returns the data YAML's root keys."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from unidefense_torch.data import native
+    from unidefense_torch.data.store import FrameStoreWriter
+
+    rng = np.random.default_rng(SEED + 40)
+    roots = {k: os.path.join(root, k) for k in UA_FRAMES}
+    writers = {}
+    for sub, store in UA_STORES.items():
+        os.makedirs(os.path.join(roots[sub], "lmdb"))
+        writers[sub] = FrameStoreWriter(os.path.join(roots[sub], "lmdb", f"{store}.udb"))
+
+    def dump(obj, sub, *parts):
+        path = os.path.join(roots[sub], *parts)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(obj, path)
+
+    def video(sub, pattern, key=lambda rel: rel, n=frames):
+        out = []
+        for f in range(n):
+            rel = pattern.format(f=f)
+            frame = rng.integers(0, 256, (*UA_FRAMES[sub], 3), dtype=np.uint8)
+            if rel.endswith(".png"):  # zlib level 1, cv2.imwrite's default
+                buf = io.BytesIO()
+                Image.fromarray(frame).save(buf, format="PNG", compress_level=1)
+                writers[sub].add(key(rel), buf.getvalue())
+            else:
+                writers[sub].add(key(rel), native.encode_jpeg(frame, 95))
+            out.append(rel)
+        return out
+
+    ffpp = []
+    for method in ("original_sequences/youtube", "manipulated_sequences/Deepfakes",
+                   "manipulated_sequences/Face2Face", "manipulated_sequences/FaceSwap",
+                   "manipulated_sequences/NeuralTextures"):
+        label = int(method.startswith("manipulated"))
+        for v in range(videos):
+            pattern = f"{method}/c23/images/{v:03d}/{{f:04d}}.jpg"
+            ffpp += [(p, label) for p in video("FFpp", pattern)]
+    cdf = []
+    for pattern in ("Celeb-real/images/id0_0000", "YouTube-real/images/00000",
+                    "Celeb-synthesis/images/id0_id1_0000", "Celeb-synthesis/images/id2_id3_0001"):
+        cdf += video("CDF", pattern + "/{f}.png")
+    for split in ("train", "val", "test"):
+        dump(ffpp, "FFpp", "pickle_files", f"{split}_c23.pickle")
+        dump(cdf, "CDF", "pickle_files", f"{split}.pickle")
+
+    def suffixed(rel):
+        return rel[:-4] + "_crop.jpg"
+
+    for label in ("real", "fake"):
+        dump(video("SeqDF", f"Seq-DeepFake/{label}/v0/{{f}}.jpg", suffixed), "SeqDF",
+             "pickle_files", f"train_{label}.pickle")
+        dump(video("OULU", f"Oulu_NPU/Train_files/{label}_v0/{{f}}.jpg",
+                   lambda rel: rel.replace("Oulu_NPU", "Oulu_NPU_crop")),
+             "OULU", "lists", f"{label}_5points.pickle")
+    for label, kind in (("live", "live"), ("all", "spoof")):
+        dump(video("SiWMv2", f"SiW-Mv2/{kind}_v0/{{f}}.jpg", suffixed), "SiWMv2", "lists",
+             f"trainlist_{label}.pickle")
+    record, rows = {}, []
+    for kind in ("bonafide",) + UA_HQ_ATTACKS:
+        record[kind] = video("HQ", f"HQ_WMCA/{kind}/{{f}}.jpg", suffixed, n=frames // 2)
+        rows.append(f"s/{kind},0,bonafide,x,train" if kind == "bonafide"
+                    else f"s/{kind},1,attack/{kind},x,train")
+    dump(record, "HQ", "record.pickle")
+    with open(os.path.join(roots["HQ"], "PROTOCOL-grand_test-curated.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    for w in writers.values():
+        w.close()
+    return {"root": root, **{f"{k}_root": v for k, v in roots.items()}}
+
+
+def _image_compression_against_pillow(card: str) -> str:
+    """ImageCompression's round trip (the port's encoder, then its decoder)
+    against Pillow's (libjpeg-turbo: ``save(quality=q, subsampling=2)``,
+    then its decode) at the qualities of the Protocol I OneOf's ends and
+    middle, 50, 55 and 60, on a 380^2 frame of smoothed noise: each
+    encoder's quantisation tables read from its bytes and held against
+    IJG's tables scaled to q (libjpeg's ``jpeg_set_quality``), and the
+    round trips' max and mean difference held within UA_JPEG_TOL."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from unidefense_torch.data import native
+    from unidefense_torch.data.transforms import blur_u8
+
+    def pillow(b):
+        return np.asarray(Image.open(io.BytesIO(b)).convert("RGB")).astype(np.int32)
+
+    rng = np.random.default_rng(SEED + 41)
+    yy, xx = np.mgrid[0:380, 0:380]
+    ramp = np.stack([xx * 0.5, yy * 0.4, (xx + yy) * 0.25], -1)
+    frame = blur_u8(rng.integers(0, 256, (1, 380, 380, 3), dtype=np.uint8), 9)[0]
+    frame = np.clip(frame * 0.5 + ramp, 0, 255).astype(np.uint8)
+    parts = []
+    for q in (50, 55, 60):
+        blob = native.encode_jpeg(frame, q)
+        ours = native.decode_batch([blob], None, 380, 380)[0].astype(np.int32)
+        out = io.BytesIO()
+        Image.fromarray(frame).save(out, "JPEG", quality=q, subsampling=2)
+        ref = pillow(out.getvalue())
+        want = ijg_tables(q)
+        for who, b in (("port", blob), ("Pillow", out.getvalue())):
+            tables = dqt_tables(b)
+            if tables[:2] != want:
+                raise AssertionError(f"[jpeg] q{q}: the {who} encoder's quantisation tables are "
+                                     f"not IJG's at quality {q}: {tables} vs {want}")
+        d = np.abs(ours - ref)
+        # the gap split: both blobs through Pillow's decoder (the encoders
+        # alone), Pillow's blob through both decoders (the decoders alone)
+        enc = np.abs(pillow(blob) - ref)
+        dec = np.abs(native.decode_batch([out.getvalue()], None, 380, 380)[0] - ref)
+        parts.append(f"q{q} max {int(d.max())} mean {float(d.mean()):.4f} (the encoders alone "
+                     f"max {int(enc.max())} mean {float(enc.mean()):.4f}, the decoders alone max "
+                     f"{int(dec.max())} mean {float(dec.mean()):.4f}; from the source: port "
+                     f"{float(np.abs(ours - frame).mean()):.4f}, Pillow "
+                     f"{float(np.abs(ref - frame).mean()):.4f})")
+        if not (d.max() <= UA_JPEG_TOL[0] and d.mean() <= UA_JPEG_TOL[1]):
+            raise AssertionError(f"[jpeg] ImageCompression q{q}: the port's round trip is off "
+                                 f"Pillow's by max {int(d.max())}, mean {float(d.mean())} "
+                                 f"(tol {UA_JPEG_TOL})")
+    return (f"ImageCompression round trip ({native.backend()}) against Pillow's at q 50/55/60, "
+            f"380^2 4:2:0, tol max {UA_JPEG_TOL[0]} mean {UA_JPEG_TOL[1]}: {'; '.join(parts)}; "
+            "both encoders' luma and chroma tables are IJG's at each q")
+
+
+# max and mean |port - Pillow| of ImageCompression's round trip at q 50-60,
+# set from the first run on the card of the encoder that takes libjpeg's
+# planes: nvJPEG max 11, 9, 9 and mean 0.1812, 0.1609, 0.1685 at q 50, 55, 60
+# (its own RGB conversion had given max 22, mean 1.93; PERF.md section 6);
+# libjpeg 0 and 0
+UA_JPEG_TOL = (14, 0.25)
+
+# IJG's (JPEG Annex K) luma and chroma quantisation tables in natural order
+_IJG_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40,
+             57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35,
+             55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112,
+             100, 103, 99)
+_IJG_CHROMA = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99,
+               99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99) + (99,) * 32
+_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+           27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37,
+           44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def ijg_tables(q: int) -> list:
+    """libjpeg's ``jpeg_set_quality(q, force_baseline=TRUE)``: the Annex K
+    tables scaled by 5000/q (q < 50) or 200 - 2q, rounded, clamped to
+    1..255; luma then chroma, natural order."""
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return [tuple(min(255, max(1, (v * scale + 50) // 100)) for v in base)
+            for base in (_IJG_LUMA, _IJG_CHROMA)]
+
+
+def dqt_tables(blob: bytes) -> list:
+    """The quantisation tables of a JPEG's DQT segments, in table-id order,
+    natural order (the bitstream stores them zigzag)."""
+    tables, i = {}, 2
+    while i + 4 <= len(blob) and blob[i] == 0xFF:
+        marker, length = blob[i + 1], int.from_bytes(blob[i + 2:i + 4], "big")
+        if marker == 0xDA:  # start of scan: no table after it
+            break
+        if marker == 0xDB:
+            j = i + 4
+            while j < i + 2 + length:
+                precision, tid = blob[j] >> 4, blob[j] & 15
+                size = 128 if precision else 64
+                raw = blob[j + 1:j + 1 + size]
+                vals = ([int.from_bytes(raw[2 * k:2 * k + 2], "big") for k in range(64)]
+                        if precision else list(raw))
+                natural = [0] * 64
+                for k, z in enumerate(_ZIGZAG):
+                    natural[z] = vals[k]
+                tables[tid] = tuple(natural)
+                j += 1 + size
+        i += 2 + length
+    return [tables[t] for t in sorted(tables)]
+
+
+def _host_blur_against_float64(card: str) -> str:
+    """The distorted OneOf's blur on the host (``transforms.blur_u8``: torch
+    on the CPU, the function tests/test_torch_uniattack.py holds within 1
+    level of cv2.GaussianBlur) on the card machine, against its plain
+    definition run in the same process: a separable float64 numpy
+    convolution of cv2's sigma with BORDER_REFLECT_101, rounded; within 1
+    level at k 9 and 11 on a 380^2 noise frame."""
+    import numpy as np
+
+    from unidefense_torch.data.transforms import blur_u8
+
+    frame = np.random.default_rng(SEED + 42).integers(0, 256, (380, 380, 3), dtype=np.uint8)
+    parts = []
+    for k in (9, 11):
+        sigma = 0.3 * ((k - 1) * 0.5 - 1) + 0.8
+        xs = np.arange(k) - (k - 1) / 2
+        w = np.exp(-xs ** 2 / (2 * sigma ** 2))
+        w /= w.sum()
+        p = k // 2
+        x = np.pad(frame.astype(np.float64), ((p, p), (p, p), (0, 0)), mode="reflect")
+        x = sum(w[i] * x[i:i + 380] for i in range(k))
+        x = sum(w[i] * x[:, i:i + 380] for i in range(k))
+        ref = np.clip(np.round(x), 0, 255)
+        d = np.abs(blur_u8(frame[None], k)[0] - ref)
+        if not d.max() <= 1:
+            raise AssertionError(f"[jpeg] host blur k{k}: {d.max()} levels off float64")
+        parts.append(f"k{k} max {int(d.max())} mean {float(d.mean()):.4f}")
+    return ("the OneOf's host blur (transforms.blur_u8, torch on the host) against a float64 "
+            f"separable reflect-101 blur, tol max 1: {'; '.join(parts)}")
+
+
+def _png_against_pillow(card: str) -> str:
+    """The host library's PNG decoder (Celeb-DF's frames; code of its own on
+    both builds) against Pillow's, bit for bit: 320^2 smoothed noise saved
+    by Pillow in its RGB, RGBA, L, LA and P modes, plain and optimised,
+    with ``jpeg_dims`` their sizes; a PNG of a JPEG's decode cropped and
+    resized to 380^2 (bilinear and bicubic) in a batch that mixes both
+    formats, equal to the JPEG's; a damaged PNG raises IOError. Times the
+    decode of 16 RGB PNGs in one call."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from unidefense_torch.data import native
+
+    rng = np.random.default_rng(SEED + 43)
+    noise = rng.integers(0, 256, (322, 322, 3)).astype(np.float64)
+    frame = ((noise[:-2, :-2] + noise[1:-1, 1:-1] + noise[2:, 2:]) / 3).astype(np.uint8)
+    parts = []
+    for mode in ("RGB", "RGBA", "L", "LA", "P"):
+        for optimize in (False, True):
+            buf = io.BytesIO()
+            Image.fromarray(frame).convert(mode).save(buf, format="PNG", optimize=optimize)
+            blob = buf.getvalue()
+            want = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+            got = native.decode_batch([blob], None, 320, 320)[0]
+            if not (np.array_equal(got, want) and native.jpeg_dims([blob]).tolist() == [[320, 320]]):
+                raise AssertionError(f"[jpeg] PNG {mode} (optimize {optimize}): "
+                                     f"{int(np.abs(got.astype(int) - want).max())} levels off "
+                                     f"Pillow, size {native.jpeg_dims([blob]).tolist()}")
+        parts.append(mode)
+    jpeg = native.encode_jpeg(frame, 95)
+    buf = io.BytesIO()
+    Image.fromarray(native.decode_batch([jpeg], None, 320, 320)[0]).save(buf, format="PNG")
+    png = buf.getvalue()
+    boxes = np.asarray([[11, 23, 301, 290], [-9, -9, 400, 400]], np.int32)
+    for interp in (native.INTER_LINEAR, native.INTER_CUBIC):
+        want = native.decode_batch([jpeg, jpeg], boxes, 380, 380, interp=interp)
+        got = native.decode_batch([png, jpeg], boxes, 380, 380, interp=interp)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[jpeg] PNG crop+resize (interp {interp}) differs from its "
+                                 f"JPEG twin's by {int(np.abs(got.astype(int) - want).max())}")
+    broken = bytearray(png)
+    broken[len(png) // 2] ^= 0xFF
+    try:
+        native.decode_batch([png, bytes(broken)], None, 320, 320)
+    except IOError:
+        pass
+    else:
+        raise AssertionError("[jpeg] a damaged PNG gave no IOError")
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    batch = [buf.getvalue()] * 16
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.decode_batch(batch, None, 320, 320)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    return (f"PNG decode (host, {native.backend()} build) bit for bit Pillow's in modes "
+            f"{'/'.join(parts)}, plain and optimised, 320^2, sizes from the header; a PNG crop+"
+            f"resize to 380^2 equal to its JPEG twin's in a mixed batch, bilinear and bicubic; a "
+            f"damaged PNG raises IOError; 16 RGB PNGs of {len(batch[0])} bytes in one call, "
+            f"median of 5 on the host's clock {ms:.2f} ms")
+
+
+def phase_corrupt(card: str) -> None:
+    """The device corruption route (``DevicePipeline(corrupt=True)``: /255,
+    the per-sample OneOf of blur 9/11, noise, contrast and saturation, the
+    flip, mean/std; plain torch ops, no K1, as the JAX stage runs no Pallas
+    kernel there) on the card against the same call on the CPU, with the
+    same draws passed in (every branch and both blur sizes), on a b8 380^2
+    batch, fp32 output: within 1e-5. Times both."""
+    import torch
+
+    from unidefense_torch.data.transforms import CorruptDraws, DevicePipeline
+    from unidefense_torch.ops.preprocess import normalize_flip
+
+    gen = torch.Generator().manual_seed(SEED + 43)
+    shape = (8, 380, 380, 3)
+    x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    draws = CorruptDraws.draw(shape, gen)
+    draws.branch = torch.arange(8) % 4
+    draws.k11 = torch.arange(8) % 8 < 4
+    flip = torch.rand(8, generator=gen) < 0.5
+    stage = DevicePipeline(mean=K1_MEAN, std=K1_STD, hflip_p=0.5, corrupt=True)
+    t0 = time.perf_counter()
+    ref = stage(x, flip_mask=flip, draws=draws)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    cuda = CorruptDraws(*(t.cuda() for t in (draws.branch, draws.u, draws.k11, draws.noise)))
+    xc, fc = x.cuda(), flip.cuda()
+    counts = normalize_flip.launches
+    got = stage(xc, flip_mask=fc, draws=cuda)
+    if normalize_flip.launches != counts:
+        raise AssertionError("[corrupt] the corruption route launched K1")
+    err = float((got.cpu() - ref).abs().max())
+    if not (got.is_cuda and err <= 1e-5):
+        raise AssertionError(f"[corrupt] card vs CPU max |err| {err} (tol 1e-5)")
+    ms = time_ms(lambda: stage(xc, flip_mask=fc, draws=cuda))
+    log(f"[corrupt] DevicePipeline(corrupt=True) b8 380^2 u8 -> fp32, branches blur9/11, noise, "
+        f"contrast, saturation x2, flip: card vs CPU with the same draws max |err| {err:.3g} "
+        f"(tol 1e-5); {ms:.3f} ms on the card, {cpu_ms:.1f} ms on the CPU; no K1 launch; {card}")
+
+
+def _unpadded(eval_step):
+    """``eval_step`` over the rows of a batch before its trailing copies of
+    the last row, the probabilities of the copies repeated."""
+    import torch
+
+    def run(x, *args):
+        k = x.shape[0]
+        while k > 1 and torch.equal(x[k - 2], x[-1]):
+            k -= 1
+        probs, cls_out, rec = eval_step(x[:k], *args)
+        return torch.cat([probs, probs[-1:].expand(x.shape[0] - k)]), cls_out, rec
+    return run
+
+
+UE_EVAL_TOL = 2e-2  # a probability, bf16 on the card against fp32: [parity]'s bound
+
+
+def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) -> str:
+    """The UE engine's validation on the card against the same on the CPU:
+    the Test-stage engine of the distorted config (its best checkpoint
+    restored), with the validation batch of training (b64), scores val-real
+    and val-fake, takes their frame EER threshold and applies it to the test
+    split (b96, the host OneOf): ``_val_threshold`` then ``_test_metrics``,
+    as ``validate`` runs them. The card runs bf16 through K1 and K2 (its
+    launches checked per eval batch), the CPU fp32 through the plain
+    versions, on the same uint8 batches (the card's, replayed: the two
+    prefetch threads of ``score_dataset`` draw the OneOf in either order)
+    and the same weights: the checkpoint's, which 3 steps from random init
+    leave with eval-mode BatchNorm statistics that tie every probability
+    (threshold inf), are replaced in both by ``seeded_weights``' calibrated
+    ones. The CPU scores only the rows of each batch that are not padding
+    (``score_dataset`` pads with copies of the last frame, and each frame
+    is scored on its own in eval mode). Every frame's probability within
+    UE_EVAL_TOL, the threshold finite and within UE_EVAL_TOL, the
+    probabilities spread."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.config import load_config
+    from unidefense_torch.data.datasets import UniAttack
+    from unidefense_torch.engines import base
+    from unidefense_torch.engines.uniattack import UniAttackEngine
+
+    weights = seeded_weights(card, "UDEB4")
+    per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
+    score_dataset, load_item = base.AbstractEngine.score_dataset, UniAttack.load_item
+    batches, probs, runs, now = {}, {}, {}, {}
+
+    def scored(engine, dataset, batch_size, *args, **kwargs):
+        got = score_dataset(engine, dataset, batch_size, *args, **kwargs)
+        probs.setdefault(now["device"], []).extend(p for v in got[0].values() for p in v)
+        runs[now["device"]][1] += -(-len(dataset) // batch_size)
+        return got
+
+    def recorded(ds, items, labels, *args, **kwargs):
+        key = (ds.split, tuple(items))
+        if now["device"] == "cpu":  # the card's batches, replayed
+            return {k: (v.copy() if hasattr(v, "copy") else v) for k, v in batches[key].items()}
+        batches[key] = load_item(ds, items, labels, *args, **kwargs)
+        return batches[key]
+
+    cwd, stdout = os.getcwd(), sys.stdout
+    try:
+        os.chdir(root)
+        base.AbstractEngine.score_dataset, UniAttack.load_item = scored, recorded
+        for device in ("cuda", "cpu"):
+            config = load_config(model_path, engine="UE", ds_config=data_path)
+            config["config"]["offline"] = True
+            if device == "cpu":
+                config["config"]["precision"] = "fp32"
+            engine = UniAttackEngine(config, stage="Test", device=device)
+            now["device"] = device
+            engine.state.model.load_state_dict(weights)
+            engine.val_batch_size = config["data"]["val_batch_size"]
+            if device == "cpu":
+                engine.eval_step = _unpadded(engine.eval_step)
+            runs[device] = [None, 0, time.perf_counter()]
+            _reset_counts()
+            val = engine._val_threshold(-1)
+            video, frame = engine._test_metrics(-1, val["Thre"])
+            runs[device][0] = (val, video, frame, _route_counts(),
+                               time.perf_counter() - runs[device][2])
+            sys.stdout = stdout
+            del engine
+    finally:
+        base.AbstractEngine.score_dataset, UniAttack.load_item = score_dataset, load_item
+        sys.stdout = stdout
+        os.chdir(cwd)
+    (val, video, frame, counts, gpu_s), n_batches = runs["cuda"][0], runs["cuda"][1]
+    (c_val, c_video, c_frame, _, cpu_s) = runs["cpu"][0]
+    want = (n_batches, n_batches * per_k2, 0, 0, 0)
+    if counts != want:
+        raise AssertionError(f"[engine-ue] card validation: launches {counts}, expected {want}")
+    gpu, cpu = np.asarray(probs["cuda"]), np.asarray(probs["cpu"])
+    d = float(np.abs(gpu - cpu).max()) if gpu.shape == cpu.shape else float("inf")
+    thr, c_thr = val["Thre"], c_val["Thre"]
+    if not (d <= UE_EVAL_TOL and np.isfinite(thr) and np.isfinite(c_thr)
+            and abs(thr - c_thr) <= UE_EVAL_TOL and np.ptp(cpu) > 10 * UE_EVAL_TOL):
+        raise AssertionError(f"[engine-ue] card vs CPU validation: {gpu.shape} vs {cpu.shape} "
+                             f"probabilities, max |dprob| {d}, thresholds {thr} and {c_thr}, "
+                             f"spread {np.ptp(cpu)} (tol {UE_EVAL_TOL})")
+    return (f"validation as training runs it (val b64, its EER threshold on the distorted test "
+            f"split b96), card bf16 vs CPU fp32 from the same calibrated weights and batches, "
+            f"{len(gpu)} frames in {n_batches} card batches (launches {counts[:2]}): max |dprob| "
+            f"{d:.3g} (tol {UE_EVAL_TOL}), probabilities {float(cpu.min()):.4f}-"
+            f"{float(cpu.max()):.4f}; threshold {thr:.6f} vs {c_thr:.6f}; val AUC "
+            f"{val['AUC']:.4f} vs {c_val['AUC']:.4f}; test frame ACER {frame['ACER']:.4f} vs "
+            f"{c_frame['ACER']:.4f}, AUC {frame['AUC']:.4f} vs {c_frame['AUC']:.4f}; video ACER "
+            f"{video['ACER']:.4f} vs {c_video['ACER']:.4f}, AUC {video['AUC']:.4f} vs "
+            f"{c_video['AUC']:.4f}; {gpu_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+
+
+def phase_engine_ue(card: str) -> tuple:
+    """``python -m unidefense_torch.main --engine UE`` in process: UDEB4 at
+    380^2, b10+10, bf16, AdamW amsgrad, StepLR, crop nocrop
+    (config_template/uniatt/Prot1/model_udeb4.yml, data_ffpp.yml:
+    RandomResizedCrop with the bicubic resize, 6 real and 16 fake methods
+    over the six sub-datasets) on a synthetic UniAttack tree. Trains 6 steps
+    (validation at 3 and 6: the frame EER threshold of val-real and
+    val-fake at b64, the test split's video and frame metrics at it, b96),
+    tests from the best checkpoint on the test split with ``distorted:
+    true`` (the host OneOf on every b96 batch), resumes to step 9. Checks as
+    [engine-fe], with launches per train step K1 1, K2 96, K2-bwd 48 and per
+    eval batch K1 1, K2 24; times the host OneOf per test batch; holds the
+    validation on the card against the CPU (:func:`_ue_eval_against_cpu`).
+    Celeb-DF's frames are PNG. Returns the launch totals over the three
+    runs."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from unidefense_torch.data.datasets import UniAttack
+    from unidefense_torch.data.transforms import HostPipeline
+    from unidefense_torch.engines.uniattack import UniAttackEngine
+
+    per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
+    runs = EngineRuns("engine-ue", "UE", UniAttack, UniAttackEngine,
+                      (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
+    root = tempfile.mkdtemp(prefix="ud_engine_ue_")
+    apply, oneof = HostPipeline.apply, []
+
+    def timed_apply(host, frames, draws):
+        t0 = time.perf_counter()
+        out = apply(host, frames, draws)
+        if host.distorted_oneof:
+            oneof.append((len(frames), time.perf_counter() - t0, [d[1][0] for d in draws]))
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        tree = _write_uniattack(os.path.join(root, "uniattack"))
+        written = time.perf_counter() - t0
+        log(f"[jpeg] {_image_compression_against_pillow(card)}; "
+            f"{_host_blur_against_float64(card)}; {_png_against_pillow(card)}; {card}")
+        model_yml = "config_template/uniatt/Prot1/model_udeb4.yml"
+        first, resumed = _engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}",
+                                         model_yml=model_yml, log_steps=3, val_steps=3, **tree)
+        with open(os.path.join(root, "data_6.yml")) as f:
+            distorted = dict(yaml.safe_load(f), distorted=True)
+        with open(os.path.join(root, "data_distorted.yml"), "w") as f:
+            yaml.safe_dump(distorted, f)
+        HostPipeline.apply = timed_apply
+        try:
+            runs.run(root, first, resumed,
+                     test_argv=("--ds_config", os.path.join(root, "data_distorted.yml")))
+        finally:
+            HostPipeline.apply = apply
+        losses, aucs, scored = runs.check(root, n_iters=3, eval_lines=12)
+        # its CPU side scores UDEB4 fp32 at 380^2 (1.4 s a frame on the card
+        # machine's cores): 20 frames, one method of each label, one frame a
+        # video but val-real's two
+        with open(os.path.join(root, "data_parity.yml"), "w") as f:
+            yaml.safe_dump(dict(distorted, val_fake_method=["FFpp-DF"],
+                                test_method=["FFpp-Real", "FFpp-DF"], val_fake_fpv=1,
+                                test_real_fpv=1, test_fake_fpv=1), f)
+        parity = _ue_eval_against_cpu(root, first, os.path.join(root, "data_parity.yml"), card)
+        if not (sum("[Frame], ACER" in ln for ln in scored) == 4
+                and sum(ln.startswith("Test Step") for ln in scored) == 8):
+            raise AssertionError(f"[engine-ue] Eval Step / Test Step lines {scored}")
+        trained, tested, again = (x[0] for x in runs.runs)
+        if not (tested.test_set.host_tf.distorted_oneof and oneof
+                and all(n == tested.test_batch_size for n, _, _ in oneof)):
+            raise AssertionError(f"[engine-ue] the distorted test ran the host OneOf on "
+                                 f"{[n for n, _, _ in oneof]} frames")
+        branches = [b for _, _, bs in oneof for b in bs]
+        bs = trained.data_cfg["train_batch_size"]
+        r = runs.rates(2 * bs)
+        # score_dataset calls in order: val-real, val-fake, test at steps 3
+        # and 6, then the distorted test run's three, then step 9's three
+        per_batch = [round(s * 1e3 / b, 2) for b, s in runs.evals]
+        log(f"[engine-ue] python -m unidefense_torch.main --engine UE: UDEB4 380^2 b10+10 bf16 "
+            f"(Prot1 model_udeb4.yml, data_ffpp.yml) on {trained.device}, {trained.state.step} "
+            f"steps + distorted test + resume to {again.state.step}: steps 2-6, each between two "
+            f"synchronises, data waits excluded: {r['step_rate']:.2f} img/s, p50 "
+            f"{statistics.median(r['step_ms']):.2f} ms per step "
+            f"({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
+            f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
+            f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
+            f"bare step; host decode p50 {statistics.median(runs.batches) * 1e3:.2f} ms per step "
+            f"(two {bs}-frame stream loads over six FrameStores: header sizes, RandomResizedCrop, "
+            f"bicubic 256^2-400x320 -> 380^2; {len(runs.batches)} steps); host OneOf "
+            f"{[round(s * 1e3, 2) for _, s, _ in oneof]} ms per b96 test batch after its decode "
+            f"(branches JPEG/blur/noise/contrast/saturation "
+            f"{[branches.count(c) for c in range(5)]}); ms per eval batch with its decode: "
+            f"validation b64 warm (val-real, val-fake at steps 6 and 9) "
+            f"{per_batch[3:5] + per_batch[9:11]}, the first {per_batch[:2]}; test b96 at steps "
+            f"3, 6, 9 {[per_batch[i] for i in (2, 5, 11)]}; the distorted test run "
+            f"{per_batch[6:9]} (val-real, val-fake, test b96 with the OneOf); peak memory "
+            f"{runs.peak:.3f} GiB; tree of {written:.2f} s; runs "
+            f"{[round(x[1], 2) for x in runs.runs]} s; {card}")
+        log(f"[engine-ue] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
+            f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
+            f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
+            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
+            f"{card}")
+        log(f"[engine-ue] {parity}; {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs.totals
+
+
 def phase_bench(card: str) -> tuple[int, int]:
     """The per-op A/B tool (path B) at its default shapes, batch 20, bf16,
     2 timed calls per column: checks that K4 ran its forward and x_bar and
@@ -1642,6 +2228,8 @@ def main() -> int:
         trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
     trained["engine-ocim"] = phase_engine_ocim(card)
+    trained["engine-ue"] = phase_engine_ue(card)
+    phase_corrupt(card)
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
     # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the FE and OCIM

@@ -1,17 +1,21 @@
 """The port's host data path against the JAX package's, on a synthetic FF++
 tree written with cv2: the FF++ index, the sampler and batcher streams, the
 FrameStore format, the host JPEG library (bit for bit against
-native/udjpeg.cc, within one level of the cv2 path), the encoder and the
-transform list."""
+native/udjpeg.cc, within one level of the cv2 path), its PNG decoder (bit
+for bit against cv2 and Pillow), the encoder and the transform list."""
 
 import ctypes
+import io
 import os
+import struct
 import subprocess
+import zlib
 
 import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from unidefense_torch.data import datasets as tds
 from unidefense_torch.data import native as tnative
@@ -217,9 +221,157 @@ def test_encoder_round_trip():
 
 
 def test_decoder_refuses_non_jpeg():
-    png = cv2.imencode(".png", np.zeros((4, 4, 3), np.uint8))[1].tobytes()
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tnative.decode_batch([png], None, 4, 4)
+    """A frame that is neither JPEG nor PNG (here a BMP) raises, in a batch
+    and for its size."""
+    bmp = cv2.imencode(".bmp", np.zeros((4, 4, 3), np.uint8))[1].tobytes()
+    with pytest.raises(NotImplementedError, match="JPEG and PNG"):
+        tnative.decode_batch([bmp], None, 4, 4)
+    with pytest.raises(NotImplementedError, match="JPEG and PNG"):
+        tnative.jpeg_dims([_jpegs()[0], bmp])
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png_filter(row, prev, bpp, f):
+    """One scanline under PNG filter ``f`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), from the raw bytes of the row and the row above."""
+    r, up = row.astype(np.int32), prev.astype(np.int32)
+    left = np.concatenate([np.zeros(bpp, np.int32), r[:-bpp]])
+    corner = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+    if f == 4:
+        pa, pb, pc = np.abs(up - corner), np.abs(left - corner), np.abs(left + up - 2 * corner)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    else:
+        pred = [0 * r, left, up, (left + up) >> 1][f]
+    return ((r - pred) & 255).astype(np.uint8)
+
+
+def png_bytes(samples, depth, colour, level=6, filters=(0,), palette=None, extra=b""):
+    """A PNG written here byte by byte (no cv2, no Pillow): ``samples``
+    (H, W, C) of ``depth`` bits, or (H, W) palette indices for colour type
+    3; the rows filtered by ``filters`` in turn, zlib at ``level`` (0 writes
+    stored blocks), the stream split over IDAT chunks of 997 bytes, and
+    ``extra`` chunks before them."""
+    h, w = samples.shape[:2]
+    flat = samples.reshape(h, -1).astype(np.int64)
+    if depth < 8:
+        rows = np.zeros((h, (flat.shape[1] * depth + 7) // 8), np.uint8)
+        for x in range(flat.shape[1]):
+            rows[:, x * depth // 8] |= (flat[:, x] << (8 - depth - x * depth % 8)).astype(np.uint8)
+    else:
+        rows = flat.astype(np.uint8 if depth == 8 else ">u2").view(np.uint8).reshape(h, -1)
+    channels = 1 if samples.ndim == 2 else samples.shape[2]
+    bpp = max(1, channels * depth // 8)
+    data, prev = bytearray(), np.zeros(rows.shape[1], np.uint8)
+    for y in range(h):
+        f = filters[y % len(filters)]
+        data += bytes([f]) + _png_filter(rows[y], prev, bpp, f).tobytes()
+        prev = rows[y]
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                                                  colour, 0, 0, 0)) + extra
+    if palette is not None:
+        out += _png_chunk(b"PLTE", palette.tobytes())
+    z = zlib.compress(bytes(data), level)
+    for at in range(0, len(z), 997):
+        out += _png_chunk(b"IDAT", z[at:at + 997])
+    return out + _png_chunk(b"IEND", b"")
+
+
+def _decodes_as_cv2(blob, pillow=True):
+    """The frame as the host library decodes it at its own size, held bit for
+    bit against cv2.imdecode(IMREAD_COLOR) and Pillow's RGB, and its size
+    from the header."""
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)[:, :, ::-1]
+    h, w = want.shape[:2]
+    np.testing.assert_array_equal(tnative.jpeg_dims([blob]), [[h, w]])
+    got = tnative.decode_batch([blob], None, h, w)[0]
+    np.testing.assert_array_equal(got, want)
+    if pillow:
+        np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(blob)).convert("RGB")))
+
+
+# (colour type, bit depth): every layout PNG allows, interlacing aside
+PNG_LAYOUTS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+               (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("colour,depth", PNG_LAYOUTS,
+                         ids=[f"type{c}-{d}bit" for c, d in PNG_LAYOUTS])
+def test_png_decodes_as_cv2_and_pillow(colour, depth):
+    """PNG frames (the frames of Celeb-DF): every colour type and bit depth,
+    each row filter alone and all five in turn, stored, fast and best zlib
+    blocks, an ancillary chunk, frame sizes down to 1x1, bit for bit as
+    cv2 decodes them in colour (16-bit samples to their high byte; Pillow
+    reads those otherwise, so it is held at 8 bits and below)."""
+    rng = np.random.default_rng(colour * 17 + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
+    for h, w in ((7, 13), (31, 17), (1, 1), (40, 52)):
+        palette = None
+        if colour == 3:
+            palette = rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
+            samples = rng.integers(0, 1 << depth, (h, w))
+        else:
+            samples = rng.integers(0, 1 << depth, (h, w, channels))
+        for level in (0, 1, 9):
+            for filters in ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4)):
+                extra = _png_chunk(b"tEXt", b"key\x00value") if level == 1 else b""
+                _decodes_as_cv2(png_bytes(samples, depth, colour, level, filters, palette, extra),
+                                pillow=depth <= 8)
+
+
+def test_png_from_cv2_and_pillow():
+    """PNGs as cv2 and Pillow write them (adaptive filters, long matches,
+    several IDAT chunks), in Pillow's RGB, RGBA, L, LA and P modes and at
+    cv2's compression levels: bit for bit as cv2 decodes them."""
+    rng = np.random.default_rng(3)
+    for h, w in ((320, 320), (37, 29)):
+        img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (5, 5), 0)
+        for level in (0, 1, 3, 9):
+            _decodes_as_cv2(cv2.imencode(".png", img, [cv2.IMWRITE_PNG_COMPRESSION, level])[1]
+                            .tobytes())
+        for mode in ("RGB", "RGBA", "L", "LA", "P"):
+            for optimize in (False, True):
+                buf = io.BytesIO()
+                Image.fromarray(img).convert(mode).save(buf, format="PNG", optimize=optimize)
+                _decodes_as_cv2(buf.getvalue())
+
+
+@pytest.mark.parametrize("interp", [tnative.INTER_LINEAR, tnative.INTER_CUBIC])
+def test_png_crops_and_resizes_as_its_jpeg_twin(interp):
+    """A PNG of the pixels a JPEG decodes to is cropped and resized to the
+    same frame, bit for bit, whether the batch mixes both formats or not."""
+    rng = np.random.default_rng(4)
+    jpeg = tnative.encode_jpeg(rng.integers(0, 256, (300, 260, 3), dtype=np.uint8), 95)
+    pixels = tnative.decode_batch([jpeg], None, 300, 260)[0]
+    png = cv2.imencode(".png", pixels[:, :, ::-1])[1].tobytes()
+    boxes = np.asarray([[10, 20, 200, 250], [-5, -5, 400, 400], [-1, -1, -1, -1]], np.int32)
+    want = tnative.decode_batch([jpeg] * 3, boxes, 380, 380, interp=interp)
+    for blobs in ([png] * 3, [png, jpeg, png], [jpeg, png, jpeg]):
+        np.testing.assert_array_equal(tnative.decode_batch(blobs, boxes, 380, 380,
+                                                           interp=interp), want)
+    np.testing.assert_array_equal(tnative.jpeg_dims([jpeg, png]), [[300, 260], [300, 260]])
+
+
+def test_broken_png_raises():
+    """A damaged IDAT (its CRC), a cut stream, a bad zlib check, an unknown
+    critical chunk and an interlaced frame raise IOError."""
+    samples = np.random.default_rng(5).integers(0, 256, (24, 20, 3))
+    good = png_bytes(samples, 8, 2, level=6, filters=(4,))
+    bad = bytearray(good)
+    bad[60] ^= 0xFF
+    ihdr = struct.pack(">IIBBBBB", 20, 24, 8, 2, 0, 0, 1)
+    interlaced = good[:8] + _png_chunk(b"IHDR", ihdr) + good[33:]
+    unknown = good[:33] + _png_chunk(b"ABCD", b"x") + good[33:]
+    z = zlib.compress(b"\x00" * (24 * 61))
+    bad_adler = (good[:33] + _png_chunk(b"IDAT", z[:-1] + bytes([z[-1] ^ 1]))
+                 + _png_chunk(b"IEND", b""))
+    for blob in (bytes(bad), good[:len(good) // 2], interlaced, unknown, bad_adler):
+        with pytest.raises(IOError):
+            tnative.decode_batch([good, blob], None, 24, 20)
+    assert tnative.decode_batch([good], None, 24, 20).shape == (1, 24, 20, 3)
 
 
 @pytest.mark.parametrize("crop,margin", [("nocrop", None), ("4p", 0.4), ("4p", (0.2, 0.8))])
@@ -254,14 +406,47 @@ def test_build_transforms_matches_jax():
 @pytest.mark.parametrize("name", ["ImageCompression", "GaussianBlur", "GaussNoise",
                                   "RandomBrightnessContrast", "ColorJitter", "OneOf"])
 def test_unported_transforms_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        ttf.build_transforms([{"name": name, "params": {"height": 8, "width": 8}}])
+    """Each transform that raised before the UniAttack path was ported now
+    builds the JAX package's stages: the same host and device fields, with
+    and without ``corrupt_distorted``."""
+    params = {"height": 8, "width": 8, "quality_lower": 40, "quality_upper": 70, "p": 0.3}
+    for distorted in (False, True):
+        th, td = ttf.build_transforms([{"name": name, "params": params}], distorted)
+        jh, jd = jtf.build_transforms([{"name": name, "params": params}], distorted)
+        for f in ("height", "width", "jpeg_compress", "jpeg_p", "distorted_oneof",
+                  "is_plain_resize"):
+            assert getattr(th, f) == getattr(jh, f), f
+        for f in ("mean", "std", "hflip_p", "corrupt"):
+            assert getattr(td, f) == getattr(jd, f), f
+    assert th.distorted_oneof and not td.corrupt
 
 
 @pytest.mark.parametrize("name", ["CDF", "WDF", "UniAttack"])
-def test_unported_datasets_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        tds.get_dataset(name)({}, "train")
+def test_unported_datasets_raise(name, ffpp, tmp_path):
+    """Celeb-DF and WildDeepfake raise an error naming ROADMAP.md queue 3;
+    UniAttack is ported: built from an FF++ index and FrameStore as the JAX
+    package builds it."""
+    if name != "UniAttack":
+        with pytest.raises(NotImplementedError, match="queue 3"):
+            tds.get_dataset(name)({}, "train")
+        return
+    root = tmp_path / "FaceForensics++"
+    (root / "pickle_files").mkdir(parents=True)
+    index = torch.load(os.path.join(ffpp, "pickle_files", "train_c23.pickle"), weights_only=False)
+    torch.save(index, root / "pickle_files" / "train_c23.pickle")
+    (root / "lmdb").mkdir()
+    with tstore.FrameStoreWriter(str(root / "lmdb" / "FaceForensics++.udb")) as w:
+        for rel, _ in index:
+            with open(os.path.join(ffpp, rel), "rb") as f:
+                w.add(rel, f.read())
+    cfg = {"root": str(tmp_path), "FFpp_root": str(root), "train_real_fpv": 2,
+           "train_fake_fpv": 3, "train_transforms": [TRANSFORMS[0]]}
+    methods = ["FFpp-Real", "FFpp-DF"]
+    got = tds.get_dataset(name)(dict(cfg), "train", methods)
+    ref = jds.get_dataset(name)(dict(cfg), "train", methods)
+    assert got.images == ref.images and got.targets == ref.targets and len(got) == 20
+    out = got.load_item(got.images[:3], None)
+    assert out["images"].shape == (3, 32, 32, 3) and out["dataset_labels"] is None
 
 
 def test_host_library_is_built_from_the_checkout():

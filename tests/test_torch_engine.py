@@ -330,12 +330,17 @@ def test_cli_parses_the_jax_flags(argv):
     assert vars(arg_parser(argv)) == vars(jax_arg_parser(argv))
 
 
-def test_cli_refuses_what_is_not_ported(fe_config, tmp_path):
+def test_cli_refuses_what_is_not_ported(fe_config, tmp_path, monkeypatch):
+    """More than one device is refused; the default engine, UE, is ported
+    and is what runs (here it stops at the missing card)."""
     cfg_path = tmp_path / "model.yml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump({k: v for k, v in fe_config.items() if k != "cfg_path"}, f)
-    for argv, error, match in (
-            (["--engine", "FE", "--num_devices", "2"], NotImplementedError, "queue 4"),
-            (["--engine", "UE"], KeyError, "queue 3")):
-        with pytest.raises(error, match=match):
-            tmain.main(["--config", str(cfg_path), *argv])
+    with pytest.raises(NotImplementedError, match="queue 4"):
+        tmain.main(["--config", str(cfg_path), "--engine", "FE", "--num_devices", "2"])
+    asked = []
+    monkeypatch.setattr(tmain, "get_engine", lambda name: asked.append(name) or get_engine(name))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmain.main(["--config", str(cfg_path)])
+    assert asked == ["UE"] and get_engine("UE").__name__ == "UniAttackEngine"

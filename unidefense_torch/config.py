@@ -10,6 +10,7 @@ Additive keys, as in the JAX package:
 * config.faithful_grad_accumulation: the reference's no-zero-grad-between-
   passes quirk (default true; see train/step.py).
 
+``--engine`` defaults to ``UE`` (the UniAttack engine), as in the JAX CLI.
 The port runs on one card: ``--num_devices`` above 1 is refused
 (:func:`check_num_devices`).
 """

@@ -1,5 +1,5 @@
-// host_jpeg — batched JPEG decode + crop + resize, frame sizes, and JPEG encode,
-// for the port's host data path (unidefense_tpu's native/udjpeg.cc and the
+// host_jpeg — batched JPEG and PNG decode + crop + resize, frame sizes, and
+// JPEG encode, for the port's host data path (unidefense_tpu's native/udjpeg.cc and the
 // cv2.imencode of its transforms).
 //
 // One call decodes a whole batch on a pool of threads and writes fixed-size
@@ -24,6 +24,14 @@
 //
 // Resize: bilinear or bicubic, half-pixel centres (cv2.resize's grid for
 // INTER_LINEAR and INTER_CUBIC).
+//
+// PNG frames (Celeb-DF's) are decoded on the host by code of this file on
+// both backends and then cropped and resized as the JPEG frames are.
+//
+// Encode (cv2.imencode's 4:2:0 baseline JPEG): both backends take the same
+// host planes, libjpeg's colour conversion and chroma subsampling (Ycc420);
+// libjpeg writes cv2's bytes from them, nvJPEG quantises them with the same
+// IJG tables through its own forward DCT.
 
 #include <algorithm>
 #include <atomic>
@@ -247,6 +255,69 @@ void resize_cubic(const uint8_t* src, int h_in, int w_in, uint8_t* dst, int h_ou
   }
 }
 
+// An RGB frame as the three planes libjpeg's compressor hands its forward
+// DCT at 4:2:0 (jpeg_set_defaults, libjpeg-turbo): the fixed-point
+// RGB -> YCbCr of jccolor.c; the right and bottom edges replicated
+// (expand_right_edge and expand_bottom_edge of jcsample.c and jcprepct.c);
+// the chroma averaged over 2x2 pixels with the bias 1, 2, 1, 2, ... of
+// h2v2_downsample. Y is padded to whole blocks across and whole 16-row
+// iMCUs down, Cb and Cr (half as wide and high) to whole blocks and 8-row
+// iMCUs: what jpeg_write_raw_data takes. Both encoders start from these
+// planes, so the nvJPEG encoder converts and subsamples as libjpeg does.
+struct Ycc420 {
+  int yw, yh, cw, ch;
+  std::vector<uint8_t> y, cb, cr;
+
+  Ycc420(const uint8_t* rgb, int h, int w)
+      : yw((w + 7) / 8 * 8), yh((h + 15) / 16 * 16), cw((w + 15) / 16 * 8),
+        ch((h + 15) / 16 * 8) {
+    auto fix = [](double x) { return static_cast<long>(x * 65536.0 + 0.5); };
+    const long one_half = 1L << 15, cbcr_offset = 128L << 16;
+    const long ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+    const long rcb = -fix(0.16874), gcb = -fix(0.33126), half = fix(0.50000);
+    const long gcr = -fix(0.41869), bcr = -fix(0.08131);
+    // full-resolution YCbCr of the frame's rows, columns replicated to
+    // 2 * cw (>= yw)
+    const int fw = 2 * cw;
+    std::vector<uint8_t> full[3];
+    for (auto& plane : full) plane.resize(static_cast<size_t>(fw) * h);
+    for (int r = 0; r < h; ++r) {
+      for (int x = 0; x < fw; ++x) {
+        const uint8_t* px = rgb + (static_cast<size_t>(r) * w + std::min(x, w - 1)) * 3;
+        const long cr_ = px[0], cg = px[1], cb_ = px[2];
+        const size_t at = static_cast<size_t>(r) * fw + x;
+        full[0][at] = static_cast<uint8_t>((ry * cr_ + gy * cg + by * cb_ + one_half) >> 16);
+        full[1][at] = static_cast<uint8_t>(
+            (rcb * cr_ + gcb * cg + half * cb_ + cbcr_offset + one_half - 1) >> 16);
+        full[2][at] = static_cast<uint8_t>(
+            (half * cr_ + gcr * cg + bcr * cb_ + cbcr_offset + one_half - 1) >> 16);
+      }
+    }
+    y.resize(static_cast<size_t>(yw) * yh);
+    for (int r = 0; r < yh; ++r) {
+      std::memcpy(&y[static_cast<size_t>(r) * yw],
+                  &full[0][static_cast<size_t>(std::min(r, h - 1)) * fw], yw);
+    }
+    const int rows = (h + 1) / 2;  // chroma rows computed; the rest replicate the last
+    for (int c = 1; c < 3; ++c) {
+      std::vector<uint8_t>& out = c == 1 ? cb : cr;
+      out.resize(static_cast<size_t>(cw) * ch);
+      for (int r = 0; r < ch; ++r) {
+        const int cr0 = std::min(r, rows - 1);
+        const uint8_t* in0 = &full[c][static_cast<size_t>(2 * cr0) * fw];
+        const uint8_t* in1 = &full[c][static_cast<size_t>(std::min(2 * cr0 + 1, h - 1)) * fw];
+        uint8_t* o = &out[static_cast<size_t>(r) * cw];
+        int bias = 1;
+        for (int x = 0; x < cw; ++x) {
+          o[x] = static_cast<uint8_t>((in0[2 * x] + in0[2 * x + 1] + in1[2 * x] + in1[2 * x + 1] +
+                                       bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+  }
+};
+
 #if defined(UD_JPEG_LIBJPEG)
 
 const char kBackend[] = "libjpeg";
@@ -358,9 +429,13 @@ bool read_dims(const uint8_t* blob, size_t size, int /*device*/, int* height, in
 }
 
 // Baseline JPEG of an RGB frame (libjpeg's defaults: 4:2:0 chroma, as
-// cv2.imencode); returns the length, 0 on failure, or -needed if cap is short.
+// cv2.imencode), fed as the Ycc420 planes through jpeg_write_raw_data: the
+// bytes libjpeg writes from the RGB scanlines, so the planes are checked
+// against libjpeg's own conversion wherever this backend is built. Returns
+// the length, 0 on failure, or -needed if cap is short.
 long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t cap,
             int /*device*/) {
+  Ycc420 planes(rgb, h, w);
   jpeg_compress_struct cinfo;
   ErrorMgr jerr;
   unsigned char* buf = nullptr;
@@ -380,10 +455,18 @@ long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t 
   cinfo.in_color_space = JCS_RGB;
   jpeg_set_defaults(&cinfo);
   jpeg_set_quality(&cinfo, quality, TRUE);
+  cinfo.raw_data_in = TRUE;
   jpeg_start_compress(&cinfo, TRUE);
-  while (cinfo.next_scanline < cinfo.image_height) {
-    JSAMPROW row = const_cast<uint8_t*>(rgb) + static_cast<size_t>(cinfo.next_scanline) * w * 3;
-    jpeg_write_scanlines(&cinfo, &row, 1);
+  JSAMPROW rows[3][16];
+  JSAMPARRAY image[3] = {rows[0], rows[1], rows[2]};
+  for (int r0 = 0; r0 < planes.yh; r0 += 16) {
+    for (int i = 0; i < 16; ++i) rows[0][i] = &planes.y[static_cast<size_t>(r0 + i) * planes.yw];
+    for (int i = 0; i < 8; ++i) {
+      const size_t at = static_cast<size_t>(r0 / 2 + i) * planes.cw;
+      rows[1][i] = &planes.cb[at];
+      rows[2][i] = &planes.cr[at];
+    }
+    jpeg_write_raw_data(&cinfo, image, 16);
   }
   jpeg_finish_compress(&cinfo);
   jpeg_destroy_compress(&cinfo);
@@ -568,8 +651,13 @@ bool read_dims(const uint8_t* blob, size_t size, int device, int* height, int* w
   return true;
 }
 
-// Baseline JPEG, 4:2:0 chroma (cv2.imencode's default), one at a time.
+// Baseline JPEG, 4:2:0 chroma (cv2.imencode's default), one at a time: the
+// Ycc420 planes (libjpeg's colour conversion and subsampling, on the host)
+// through nvjpegEncodeYUV: nvJPEG's own RGB path converts and subsamples
+// otherwise, and its round trip strays from libjpeg's (chip_smoke.py's
+// [jpeg] line measures the gap). nvJPEG's forward DCT remains its own.
 long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t cap, int device) {
+  Ycc420 planes(rgb, h, w);
   static std::mutex mutex;
   static nvjpegEncoderState_t state = nullptr;
   static nvjpegEncoderParams_t params = nullptr;
@@ -588,7 +676,8 @@ long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t 
       return 0;
     }
   }
-  const size_t bytes = static_cast<size_t>(w) * h * 3;
+  const size_t y_bytes = planes.y.size(), c_bytes = planes.cb.size();
+  const size_t bytes = y_bytes + 2 * c_bytes;
   if (bytes > dev_bytes) {
     if (dev != nullptr) cudaFreeAsync(dev, stream);
     if (cudaMallocAsync(reinterpret_cast<void**>(&dev), bytes, stream) != cudaSuccess) {
@@ -601,14 +690,22 @@ long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t 
   if (nvjpegEncoderParamsSetQuality(params, quality, stream) != NVJPEG_STATUS_SUCCESS ||
       nvjpegEncoderParamsSetSamplingFactors(params, NVJPEG_CSS_420, stream) !=
           NVJPEG_STATUS_SUCCESS ||
-      cudaMemcpyAsync(dev, rgb, bytes, cudaMemcpyHostToDevice, stream) != cudaSuccess) {
+      cudaMemcpyAsync(dev, planes.y.data(), y_bytes, cudaMemcpyHostToDevice, stream) !=
+          cudaSuccess ||
+      cudaMemcpyAsync(dev + y_bytes, planes.cb.data(), c_bytes, cudaMemcpyHostToDevice,
+                      stream) != cudaSuccess ||
+      cudaMemcpyAsync(dev + y_bytes + c_bytes, planes.cr.data(), c_bytes,
+                      cudaMemcpyHostToDevice, stream) != cudaSuccess) {
     return 0;
   }
   nvjpegImage_t img;
   std::memset(&img, 0, sizeof(img));
   img.channel[0] = dev;
-  img.pitch[0] = static_cast<unsigned int>(w) * 3;
-  if (nvjpegEncodeImage(handle, state, params, &img, NVJPEG_INPUT_RGBI, w, h, stream) !=
+  img.channel[1] = dev + y_bytes;
+  img.channel[2] = dev + y_bytes + c_bytes;
+  img.pitch[0] = static_cast<unsigned int>(planes.yw);
+  img.pitch[1] = img.pitch[2] = static_cast<unsigned int>(planes.cw);
+  if (nvjpegEncodeYUV(handle, state, params, &img, NVJPEG_CSS_420, w, h, stream) !=
       NVJPEG_STATUS_SUCCESS) {
     return 0;
   }
@@ -630,13 +727,370 @@ long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t 
 
 #endif
 
+// ---- PNG, on the host for both backends: the frames of Celeb-DF. A decoder
+// of its own (RFC 1950/1951 inflate, the five row filters, every colour
+// type) so that the library needs neither libpng nor zlib. The frame comes
+// out as cv2.imdecode(..., IMREAD_COLOR) gives it, in RGB: alpha dropped,
+// grey replicated, palettes looked up, grey of 1, 2 or 4 bits scaled to 8,
+// 16-bit samples cut to their high byte. Interlaced (Adam7) frames fail.
+
+const uint8_t kPngSignature[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+
+bool is_png(const uint8_t* blob, size_t size) {
+  return size >= 8 && std::memcmp(blob, kPngSignature, 8) == 0;
+}
+
+uint32_t be32(const uint8_t* p) {
+  return (static_cast<uint32_t>(p[0]) << 24) | (static_cast<uint32_t>(p[1]) << 16) |
+         (static_cast<uint32_t>(p[2]) << 8) | p[3];
+}
+
+uint32_t png_crc(const uint8_t* p, size_t n) {
+  static const std::vector<uint32_t> table = [] {
+    std::vector<uint32_t> t(256);
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      t[i] = c;
+    }
+    return t;
+  }();
+  uint32_t c = 0xFFFFFFFFu;
+  for (size_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+// LSB-first bits of a deflate stream; reading past its end yields zeros and
+// is caught by overran().
+struct BitReader {
+  const uint8_t* p;
+  size_t n, pos = 0;
+  uint64_t buf = 0;
+  int count = 0;
+  BitReader(const uint8_t* data, size_t size) : p(data), n(size) {}
+  void fill() {
+    while (count <= 56) {
+      buf |= static_cast<uint64_t>(pos < n ? p[pos] : 0) << count;
+      ++pos;
+      count += 8;
+    }
+  }
+  uint32_t peek(int k) {
+    if (count < k) fill();
+    return static_cast<uint32_t>(buf & ((1ull << k) - 1));
+  }
+  void drop(int k) { buf >>= k; count -= k; }
+  uint32_t get(int k) {
+    if (k == 0) return 0;
+    const uint32_t v = peek(k);
+    drop(k);
+    return v;
+  }
+  void align() { drop(count % 8); }
+  size_t consumed_bytes() const { return pos - count / 8; }  // after align()
+  bool overran() const { return pos * 8 - count > n * 8; }
+};
+
+// A canonical Huffman code as one 15-bit lookup: entry (length << 16) |
+// symbol at every index whose low `length` bits are the reversed code; 0
+// where no code lies (an incomplete code).
+constexpr int kHuffBits = 15;
+
+bool build_huffman(const uint8_t* lengths, int n, std::vector<uint32_t>* table) {
+  int count[kHuffBits + 1] = {0};
+  for (int i = 0; i < n; ++i) ++count[lengths[i]];
+  count[0] = 0;
+  int left = 1;
+  for (int len = 1; len <= kHuffBits; ++len) {
+    left = (left << 1) - count[len];
+    if (left < 0) return false;  // over-subscribed
+  }
+  int next[kHuffBits + 1] = {0};
+  for (int len = 1, code = 0; len <= kHuffBits; ++len) {
+    code = (code + count[len - 1]) << 1;
+    next[len] = code;
+  }
+  table->assign(1u << kHuffBits, 0);
+  for (int sym = 0; sym < n; ++sym) {
+    const int len = lengths[sym];
+    if (len == 0) continue;
+    const int code = next[len]++;
+    int rev = 0;
+    for (int b = 0; b < len; ++b) rev |= ((code >> b) & 1) << (len - 1 - b);
+    const uint32_t entry = (static_cast<uint32_t>(len) << 16) | static_cast<uint32_t>(sym);
+    for (int k = rev; k < (1 << kHuffBits); k += 1 << len) (*table)[k] = entry;
+  }
+  return true;
+}
+
+inline int huffman_symbol(BitReader* br, const std::vector<uint32_t>& table) {
+  const uint32_t entry = table[br->peek(kHuffBits)];
+  if (entry == 0) return -1;
+  br->drop(static_cast<int>(entry >> 16));
+  return static_cast<int>(entry & 0xFFFF);
+}
+
+// A zlib stream (RFC 1950) into out, at most `cap` bytes: its header, the
+// deflate blocks (stored, fixed and dynamic codes), its Adler-32.
+bool inflate_zlib(const uint8_t* in, size_t n, size_t cap, std::vector<uint8_t>* out) {
+  static const uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11,  13,  15,  17,  19,  23, 27,
+                                        31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
+  static const uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                        2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+  static const uint16_t kDistBase[30] = {1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
+                                         33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
+                                         1025, 1537, 2049, 3073, 4097, 6145,  8193,  12289, 16385,
+                                         24577};
+  static const uint8_t kDistExtra[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5,  6,
+                                         6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+  static const uint8_t kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+  if (n < 6 || (in[0] & 0x0F) != 8 || (in[0] >> 4) > 7 || (in[1] & 0x20) != 0 ||
+      ((in[0] << 8) | in[1]) % 31 != 0) {
+    return false;
+  }
+  BitReader br(in + 2, n - 2);
+  std::vector<uint32_t> lit, dist;
+  out->resize(cap);
+  uint8_t* o = out->data();
+  size_t size = 0;
+  for (bool last = false; !last;) {
+    last = br.get(1) != 0;
+    const uint32_t type = br.get(2);
+    if (type == 0) {
+      br.align();
+      const uint32_t len = br.get(16), nlen = br.get(16);
+      if ((len ^ 0xFFFF) != nlen || size + len > cap) return false;
+      for (uint32_t i = 0; i < len; ++i) o[size++] = static_cast<uint8_t>(br.get(8));
+      if (br.overran()) return false;
+      continue;
+    }
+    uint8_t lengths[320];
+    int n_lit = 288, n_dist = 30;
+    if (type == 1) {
+      for (int i = 0; i < 288; ++i) lengths[i] = i < 144 ? 8 : (i < 256 ? 9 : (i < 280 ? 7 : 8));
+      for (int i = 0; i < 30; ++i) lengths[288 + i] = 5;
+    } else if (type == 2) {
+      n_lit = static_cast<int>(br.get(5)) + 257;
+      n_dist = static_cast<int>(br.get(5)) + 1;
+      const int n_cl = static_cast<int>(br.get(4)) + 4;
+      if (n_lit > 286 || n_dist > 30) return false;
+      uint8_t cl[19] = {0};
+      for (int i = 0; i < n_cl; ++i) cl[kClOrder[i]] = static_cast<uint8_t>(br.get(3));
+      std::vector<uint32_t> cl_table;
+      if (!build_huffman(cl, 19, &cl_table)) return false;
+      for (int i = 0; i < n_lit + n_dist;) {
+        const int sym = huffman_symbol(&br, cl_table);
+        int repeat = 0;
+        uint8_t value = 0;
+        if (sym < 0) return false;
+        if (sym < 16) {
+          lengths[i++] = static_cast<uint8_t>(sym);
+          continue;
+        } else if (sym == 16) {
+          if (i == 0) return false;
+          value = lengths[i - 1];
+          repeat = 3 + static_cast<int>(br.get(2));
+        } else if (sym == 17) {
+          repeat = 3 + static_cast<int>(br.get(3));
+        } else {
+          repeat = 11 + static_cast<int>(br.get(7));
+        }
+        if (i + repeat > n_lit + n_dist) return false;
+        while (repeat-- > 0) lengths[i++] = value;
+      }
+      if (lengths[256] == 0) return false;  // no end-of-block code
+    } else {
+      return false;
+    }
+    if (!build_huffman(lengths, n_lit, &lit) || !build_huffman(lengths + n_lit, n_dist, &dist)) {
+      return false;
+    }
+    for (;;) {
+      const int sym = huffman_symbol(&br, lit);
+      if (sym < 0 || br.overran()) return false;
+      if (sym < 256) {
+        if (size >= cap) return false;
+        o[size++] = static_cast<uint8_t>(sym);
+        continue;
+      }
+      if (sym == 256) break;
+      const int li = sym - 257;
+      if (li >= 29) return false;
+      // the length's extra bits come before the distance's code
+      const size_t len = kLenBase[li] + br.get(kLenExtra[li]);
+      const int di = huffman_symbol(&br, dist);
+      if (di < 0 || di >= 30) return false;
+      const size_t d = kDistBase[di] + br.get(kDistExtra[di]);
+      if (d > size || size + len > cap) return false;
+      for (size_t k = 0; k < len; ++k, ++size) o[size] = o[size - d];
+    }
+  }
+  br.align();
+  if (br.overran()) return false;
+  const size_t at = 2 + br.consumed_bytes();
+  if (at + 4 > n) return false;
+  out->resize(size);
+  uint32_t a = 1, b = 0;
+  for (size_t i = 0; i < size;) {  // 5552: the most bytes before b can overflow
+    for (const size_t end = std::min(size, i + 5552); i < end; ++i) {
+      a += o[i];
+      b += a;
+    }
+    a %= 65521;
+    b %= 65521;
+  }
+  return ((b << 16) | a) == be32(in + at);
+}
+
+struct PngHeader {
+  int width = 0, height = 0, depth = 0, colour = 0, channels = 0;
+};
+
+// The IHDR of a PNG blob: the size and the sample layout, checked.
+bool png_header(const uint8_t* blob, size_t size, PngHeader* hd) {
+  if (!is_png(blob, size) || size < 33 || be32(blob + 8) != 13 ||
+      std::memcmp(blob + 12, "IHDR", 4) != 0 || png_crc(blob + 12, 17) != be32(blob + 29)) {
+    return false;
+  }
+  const uint8_t* d = blob + 16;
+  const uint32_t w = be32(d), h = be32(d + 4);
+  hd->depth = d[8];
+  hd->colour = d[9];
+  static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
+  if (w == 0 || h == 0 || w > (1u << 16) || h > (1u << 16) || hd->colour > 6 ||
+      kChannels[hd->colour] == 0 || d[10] != 0 || d[11] != 0 || d[12] != 0) {
+    return false;  // compression, filter method, interlace: 0 only
+  }
+  const int depth = hd->depth;
+  const bool ok_depth = hd->colour == 0 ? (depth == 1 || depth == 2 || depth == 4 || depth == 8 ||
+                                           depth == 16)
+                                        : (hd->colour == 3 ? (depth == 1 || depth == 2 ||
+                                                              depth == 4 || depth == 8)
+                                                           : (depth == 8 || depth == 16));
+  if (!ok_depth) return false;
+  hd->width = static_cast<int>(w);
+  hd->height = static_cast<int>(h);
+  hd->channels = kChannels[hd->colour];
+  return true;
+}
+
+// Decode a PNG blob into interleaved RGB u8.
+bool decode_png(const uint8_t* blob, size_t size, std::vector<uint8_t>* pixels, int* height,
+                int* width) {
+  PngHeader hd;
+  if (!png_header(blob, size, &hd)) return false;
+  std::vector<uint8_t> idat, palette;
+  bool ended = false;
+  for (size_t at = 8; !ended;) {
+    if (at + 12 > size) return false;
+    const uint32_t len = be32(blob + at);
+    if (len > size - at - 12) return false;
+    const uint8_t* type = blob + at + 4;
+    const uint8_t* data = blob + at + 8;
+    const bool critical = (type[0] & 0x20) == 0;
+    if (critical && png_crc(type, len + 4) != be32(data + len)) return false;
+    if (std::memcmp(type, "IDAT", 4) == 0) {
+      idat.insert(idat.end(), data, data + len);
+    } else if (std::memcmp(type, "PLTE", 4) == 0) {
+      if (len % 3 != 0 || len == 0 || len > 768) return false;
+      palette.assign(data, data + len);
+    } else if (std::memcmp(type, "IEND", 4) == 0) {
+      ended = true;
+    } else if (critical && std::memcmp(type, "IHDR", 4) != 0) {
+      return false;  // an unknown critical chunk
+    } else if (critical && at != 8) {
+      return false;  // a second IHDR
+    }
+    at += 12 + static_cast<size_t>(len);
+  }
+  if (hd.colour == 3 && palette.empty()) return false;
+  const int w = hd.width, h = hd.height, depth = hd.depth, ch = hd.channels;
+  const size_t stride = (static_cast<size_t>(w) * ch * depth + 7) / 8;
+  const size_t bpp = std::max<size_t>(1, static_cast<size_t>(ch) * depth / 8);
+  const size_t raw_size = static_cast<size_t>(h) * (stride + 1);
+  std::vector<uint8_t> raw;
+  // libpng tolerates data past the last row; allow up to 64 KiB of it
+  if (!inflate_zlib(idat.data(), idat.size(), raw_size + 65536, &raw) || raw.size() < raw_size) {
+    return false;
+  }
+  // undo the row filters in place (each row's filter byte, then its bytes)
+  std::vector<uint8_t> zero(stride, 0);
+  for (int y = 0; y < h; ++y) {
+    uint8_t* row = raw.data() + static_cast<size_t>(y) * (stride + 1);
+    const uint8_t filter = row[0];
+    uint8_t* cur = row + 1;
+    const uint8_t* up = y > 0 ? cur - (stride + 1) : zero.data();
+    switch (filter) {
+      case 0:
+        break;
+      case 1:
+        for (size_t x = bpp; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + cur[x - bpp]);
+        break;
+      case 2:
+        for (size_t x = 0; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + up[x]);
+        break;
+      case 3:
+        for (size_t x = 0; x < stride; ++x) {
+          const int left = x >= bpp ? cur[x - bpp] : 0;
+          cur[x] = static_cast<uint8_t>(cur[x] + ((left + up[x]) >> 1));
+        }
+        break;
+      case 4:
+        for (size_t x = 0; x < stride; ++x) {
+          const int a = x >= bpp ? cur[x - bpp] : 0, b = up[x], c = x >= bpp ? up[x - bpp] : 0;
+          const int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          cur[x] = static_cast<uint8_t>(cur[x] + pred);
+        }
+        break;
+      default:
+        return false;
+    }
+  }
+  // samples -> RGB
+  pixels->resize(static_cast<size_t>(w) * h * 3);
+  const int scale = depth >= 8 ? 1 : 255 / ((1 << depth) - 1);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* src = raw.data() + static_cast<size_t>(y) * (stride + 1) + 1;
+    uint8_t* dst = pixels->data() + static_cast<size_t>(y) * w * 3;
+    for (int x = 0; x < w; ++x, dst += 3) {
+      if (depth < 8) {
+        const int bit = x * depth;
+        const int v = (src[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
+        if (hd.colour == 3) {
+          if (3 * v + 2 >= static_cast<int>(palette.size())) return false;
+          std::memcpy(dst, &palette[3 * v], 3);
+        } else {
+          dst[0] = dst[1] = dst[2] = static_cast<uint8_t>(v * scale);
+        }
+        continue;
+      }
+      const int step = depth / 8;  // the high byte comes first
+      const uint8_t* s = src + static_cast<size_t>(x) * ch * step;
+      if (hd.colour == 3) {
+        if (3 * s[0] + 2 >= static_cast<int>(palette.size())) return false;
+        std::memcpy(dst, &palette[3 * s[0]], 3);
+      } else if (ch >= 3) {
+        dst[0] = s[0];
+        dst[1] = s[step];
+        dst[2] = s[2 * step];
+      } else {
+        dst[0] = dst[1] = dst[2] = s[0];
+      }
+    }
+  }
+  *height = h;
+  *width = w;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* ud_jpeg_backend() { return kBackend; }
 
-// Decode `n` JPEG blobs, optionally crop each to boxes[i] = (x1, y1, x2, y2)
+// Decode `n` JPEG or PNG blobs, optionally crop each to boxes[i] = (x1, y1, x2, y2)
 // (clamped; nullptr or x2 <= x1 for the full frame), resize to (out_h,
 // out_w) with `interp` (cv2's codes: 1 bilinear, 2 bicubic) and write RGB u8
 // into out (n * out_h * out_w * 3). `device` is the CUDA device of the
@@ -657,7 +1111,10 @@ int ud_decode_batch(const uint8_t** blobs, const size_t* sizes, int n,
       const int i = next.fetch_add(1);
       if (i >= n) return;
       uint8_t* dst = out + static_cast<size_t>(i) * frame;
-      if (!ready || !decoder.decode(blobs[i], sizes[i], &pixels, &h, &w)) {
+      const bool decoded = is_png(blobs[i], sizes[i])
+                               ? decode_png(blobs[i], sizes[i], &pixels, &h, &w)
+                               : ready && decoder.decode(blobs[i], sizes[i], &pixels, &h, &w);
+      if (!decoded) {
         std::memset(dst, 0, frame);
         continue;
       }
@@ -695,14 +1152,20 @@ int ud_decode_batch(const uint8_t** blobs, const size_t* sizes, int n,
   return ok.load();
 }
 
-// Read the (height, width) of `n` JPEG blobs from their headers into
+// Read the (height, width) of `n` JPEG or PNG blobs from their headers into
 // dims[2 * i], dims[2 * i + 1]. Returns the number read; a blob whose header
 // does not parse gets (0, 0).
 int ud_jpeg_dims(const uint8_t** blobs, const size_t* sizes, int n, int* dims, int device) {
   int ok = 0;
   for (int i = 0; i < n; ++i) {
     int h = 0, w = 0;
-    if (read_dims(blobs[i], sizes[i], device, &h, &w)) {
+    PngHeader png;
+    if (is_png(blobs[i], sizes[i]) ? png_header(blobs[i], sizes[i], &png)
+                                   : read_dims(blobs[i], sizes[i], device, &h, &w)) {
+      if (png.width > 0) {
+        h = png.height;
+        w = png.width;
+      }
       ++ok;
     } else {
       h = w = 0;

@@ -1,5 +1,5 @@
 """Dataset index loaders and host-side item loading
-(unidefense_tpu/data/datasets.py:33-226,537).
+(unidefense_tpu/data/datasets.py:33-226,336-525,537).
 
 Each dataset builds (images, targets) lists of path strings and int labels
 from the on-disk index artifacts the reference consumes (pickles), and
@@ -11,11 +11,14 @@ exposes:
   the host JPEG library per batch (data/native.py); normalisation and flip
   run later on the card (data/transforms.DevicePipeline, K1).
 
-Ported: FF++ (``FFpp``) and OCIM (``OCIM``: Oulu-NPU, CASIA-FASD, Idiap
-Replay-Attack and MSU-MFSD, face crops from 5-point boxes). Celeb-DF,
-WildDeepfake and UniAttack raise an error naming ROADMAP.md queue 3.
-Blob storage: files under ``root``, a FrameStore (.udb) or LMDB
-(data/store.open_blob_source).
+Ported: FF++ (``FFpp``), OCIM (``OCIM``: Oulu-NPU, CASIA-FASD, Idiap
+Replay-Attack and MSU-MFSD, face crops from 5-point boxes) and UniAttack
+(``UniAttack``: FF++, Celeb-DF, Seq-DeepFake, HQ-WMCA, Oulu-NPU and
+SiW-Mv2, one blob store each, frames of several sizes in one batch).
+Celeb-DF and WildDeepfake as datasets of their own raise an error naming
+ROADMAP.md queue 3, and so does a frame that is not a JPEG (the host
+library decodes JPEG only). Blob storage: files under ``root``, a
+FrameStore (.udb) or LMDB (data/store.open_blob_source).
 """
 
 from __future__ import annotations
@@ -146,27 +149,39 @@ class AbstractDataset:
             return (-1, -1, -1, -1)
         raise ValueError(f"Unsupported crop version '{crop}'")
 
-    def _source_boxes(self, boxes: np.ndarray, dims: np.ndarray) -> np.ndarray:
-        """Each frame's box clamped to the frame, as the JAX package's
-        ``_crop`` slices it (the whole frame for x2 <= x1), composed with
-        the box the host stage draws inside that crop, in item order: the
-        one region of each frame that the stage resizes."""
-        out = np.empty_like(boxes)
-        for i, ((x1, y1, x2, y2), (h, w)) in enumerate(zip(boxes.tolist(), dims.tolist())):
+    def _host_stage(self, blobs: list, boxes: np.ndarray) -> np.ndarray:
+        """Decode, crop and resize a batch in one call of the host JPEG
+        library, then the host stage's corruptions. A stage that draws
+        makes every draw first, frame by frame in item order as the JAX
+        stage does (the RandomResizedCrop box, then the OneOf, then
+        ImageCompression). The RandomResizedCrop box needs the frame's
+        size: it is read from the header, the face box clamped to the frame
+        as the JAX package's ``_crop`` slices it (the whole frame for
+        x2 <= x1), and the library is handed the composed box."""
+        host = self.host_tf
+        if host.is_plain_resize:
+            return decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
+        dims = jpeg_dims(blobs) if host.rrc_scale is not None else None
+        boxes, draws = boxes.copy(), []
+        for i, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
+            if dims is None:
+                draws.append(host.draw())
+                continue
+            h, w = dims[i].tolist()
             if x2 <= x1:
                 x1, y1, x2, y2 = 0, 0, w, h
             else:
                 x1, y1, x2, y2 = max(0, x1), max(0, y1), min(w, x2), min(h, y2)
-            bx1, by1, bx2, by2 = self.host_tf.crop_box(y2 - y1, x2 - x1)
-            out[i] = (x1 + bx1, y1 + by1, x1 + bx2, y1 + by2)
-        return out
+            draw = host.draw(y2 - y1, x2 - x1)
+            bx1, by1, bx2, by2 = draw[0]
+            boxes[i] = (x1 + bx1, y1 + by1, x1 + bx2, y1 + by2)
+            draws.append(draw)
+        images = decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
+        return host.apply(images, draws)
 
     def load_item(self, items, labels, margin=None, crop="4p"):
         """Decode + crop + resize a batch on the host: one call of the host
-        JPEG library for the whole batch. With RandomResizedCrop the frames'
-        sizes come from their headers first, so that each crop box is drawn
-        here and the library crops once and resizes with the stage's
-        interpolation."""
+        JPEG library for the whole batch (:meth:`_host_stage`)."""
         paths, contents_list = [], []
         for item in items:
             contents = str(item).split(" ")
@@ -177,11 +192,7 @@ class AbstractDataset:
             margin = self._resolve_margin(margin)  # one draw per batch
         blobs = [self._read_blob(p) for p in paths]
         boxes = np.asarray([self._box_for(c, margin, crop) for c in contents_list], np.int32)
-        host = self.host_tf
-        if host.rrc_scale is not None:
-            boxes = self._source_boxes(boxes, jpeg_dims(blobs))
-        images = decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
-        return {"images": images, "path": paths}
+        return {"images": self._host_stage(blobs, boxes), "path": paths}
 
 
 class FaceForensics(AbstractDataset):
@@ -261,6 +272,184 @@ class OCIMDataset:
             self.datasets.append(OCIMSubDataset(ds_cfg, split, "fake", seed))
 
 
+class UniAttack(AbstractDataset):
+    """The UniAttack benchmark (unidefense_tpu/data/datasets.py:336-525; the
+    reference's dataset/uniattack.py): six sub-datasets, each its own blob
+    store under its ``<subset>_root``, 22 method tags, per-split real and
+    fake fpv, and the Protocol I ``distorted`` test corruption (the host
+    OneOf, on the test split only)."""
+
+    METHOD = [
+        "FFpp-DF", "FFpp-F2F", "FFpp-FS", "FFpp-NT", "FFpp-Real",
+        "CDF-Fake", "CDF-Real",
+        "SeqDF-Fake", "SeqDF-Real",
+        "HQ-Flexiblemask", "HQ-Glasses", "HQ-Makeup", "HQ-Mannequin",
+        "HQ-Papermask", "HQ-Replay", "HQ-Rigidmask", "HQ-Tattoo", "HQ-Real",
+        "OULU-Fake", "OULU-Real",
+        "SiWMv2-Fake", "SiWMv2-Real",
+    ]
+    SPLITS = ["train", "val", "test"]
+    SUBSETS = {
+        "FFpp": "FaceForensics++",
+        "CDF": "Celeb-DF",
+        "SeqDF": "Seq-DeepFake",
+        "HQ": "HQ_WMCA",
+        "OULU": "Oulu_NPU",
+        "SiWMv2": "SiW-Mv2",
+    }
+
+    def __init__(self, cfg: dict, split: str, methods: list, seed: int = 2022):
+        if split not in self.SPLITS:
+            raise ValueError(f"split must be one of {self.SPLITS}")
+        for m in methods:
+            if m not in self.METHOD:
+                raise ValueError(f"method must be in METHOD, got {m}")
+        # no single blob store: UniAttack keys its blobs per sub-dataset
+        # root (dataset/uniattack.py:60-82)
+        self.cfg = cfg
+        self.split = split
+        self.root = cfg["root"]
+        self.use_lmdb = True
+        self.images, self.targets = [], []
+        self.rng = LockedRNG(seed)
+        self.categories = ["original", "fake"]
+
+        self.roots = {k: cfg.get(f"{k}_root") for k in self.SUBSETS}
+        self._blobs = {k: open_blob_source(self.roots[k], store)
+                       for k, store in self.SUBSETS.items() if self.roots[k] is not None}
+
+        distorted = split == "test" and cfg.get("distorted", False)
+        self.host_tf, self.device_tf = build_transforms(cfg.get(f"{split}_transforms"),
+                                                        corrupt_distorted=distorted)
+        self.real_fpv = cfg.get(f"{split}_real_fpv")
+        self.fake_fpv = cfg.get(f"{split}_fake_fpv")
+        for method in methods:
+            ds, me = method.split("-")
+            img, tgt = getattr(self, f"_load_{ds.lower()}")(me)
+            self.images.extend(img)
+            self.targets.extend(tgt)
+
+    # --- per-subset path routing (dataset/uniattack.py:150-198) ---
+
+    @staticmethod
+    def _subset_of(img_path: str) -> str:
+        if "manipulated_sequences" in img_path or "original_sequences" in img_path:
+            return "FFpp"
+        if "Celeb-real" in img_path or "Celeb-synthesis" in img_path or "YouTube-real" in img_path:
+            return "CDF"
+        if "Seq-DeepFake" in img_path:
+            return "SeqDF"
+        if "Oulu_NPU" in img_path:
+            return "OULU"
+        if "HQ_WMCA" in img_path:
+            return "HQ"
+        if "SiW-Mv2" in img_path:
+            return "SiWMv2"
+        raise ValueError(f"Image path not recognised: {img_path}")
+
+    def _convert_to_str(self, img_path, feature, postfix="jpg"):
+        """The stored variant's key: FF++ and Celeb-DF paths unchanged, the
+        spoofing sources with ``_<feature>`` in each one's own place."""
+        sub = self._subset_of(img_path)
+        if sub in ("FFpp", "CDF"):
+            out = img_path
+        elif sub in ("SeqDF", "SiWMv2"):
+            out = img_path[:-4] + f"_{feature}.jpg"
+        elif sub == "OULU":
+            out = img_path.replace("Oulu_NPU", f"Oulu_NPU_{feature}")
+        else:  # HQ
+            out = img_path.replace(".jpg", f"_{feature}.jpg")
+        return out.replace(".jpg", f".{postfix}")
+
+    def _read_blob_ua(self, img_path: str, crop: str) -> bytes:
+        """The blob of a frame from its sub-dataset's store: the ``_crop``
+        key when the config's crop is ``nocrop`` (whatever the item's own
+        crop), else the path itself."""
+        key = self._convert_to_str(img_path, "crop") if crop == "nocrop" else img_path
+        buf = self._blobs[self._subset_of(img_path)].get(key)
+        if buf is None:
+            raise KeyError(f"Blob missing for key {key}")
+        return buf
+
+    def load_item(self, items, labels, margin=None, crop="nocrop", dataset_label_map=None):
+        """Decode + crop + resize a batch of mixed sources in one call of the
+        host JPEG library (:meth:`_host_stage`). FF++ and Celeb-DF frames are
+        stored cropped and are never cropped again; a margin is drawn once
+        per batch only if some item is cropped 4p. ``dataset_labels`` are
+        the items' domain ids (int64) under ``dataset_label_map``, else
+        None."""
+        paths, contents_list, dlabels, eff_crops = [], [], [], []
+        for item in items:
+            contents = str(item).split(" ")
+            paths.append(contents[0])
+            contents_list.append(contents)
+            sub = self._subset_of(contents[0])
+            if dataset_label_map is not None:
+                dlabels.append(dataset_label_map[self.roots[sub]])
+            eff_crops.append("nocrop" if sub in ("FFpp", "CDF") else crop)
+
+        if any(ec == "4p" for ec in eff_crops):
+            margin = self._resolve_margin(margin)  # one draw per batch
+        blobs = [self._read_blob_ua(p, crop) for p in paths]
+        boxes = np.asarray([self._box_for(c, margin, ec)
+                            for c, ec in zip(contents_list, eff_crops)], np.int32)
+        return {"images": self._host_stage(blobs, boxes), "path": paths,
+                "dataset_labels": np.asarray(dlabels, np.int64) if dlabels else None}
+
+    # --- per-subset index loaders (dataset/uniattack.py:296-420) ---
+
+    def _finish(self, indices, method):
+        fpv = self.real_fpv if method == "Real" else self.fake_fpv
+        if fpv is not None:
+            indices = self._resample(indices, fpv)
+        return indices, [0 if method == "Real" else 1] * len(indices)
+
+    def _load_ffpp(self, method):
+        tag = {"DF": "Deepfakes", "F2F": "Face2Face", "FS": "FaceSwap",
+               "NT": "NeuralTextures", "Real": "original_sequences"}[method]
+        pre = _load_index(join(self.roots["FFpp"], "pickle_files", f"{self.split}_c23.pickle"))
+        return self._finish([p for p, _ in pre if tag in p], method)
+
+    def _load_cdf(self, method):
+        cand = _load_index(join(self.roots["CDF"], "pickle_files", f"{self.split}.pickle"))
+        if method == "Real":
+            idx = [p for p in cand if "YouTube-real" in p or "Celeb-real" in p]
+        else:
+            idx = [p for p in cand if "Celeb-synthesis" in p]
+        return self._finish(idx, method)
+
+    def _load_seqdf(self, method):
+        idx = _load_index(join(self.roots["SeqDF"], "pickle_files",
+                               f"{self.split}_{method.lower()}.pickle"))
+        # frame-level: no fpv resampling (dataset/uniattack.py:336-343)
+        return list(idx), [0 if method == "Real" else 1] * len(idx)
+
+    def _load_hq(self, method):
+        split_map = {"train": "train", "val": "dev", "test": "eval"}
+        record = _load_index(join(self.roots["HQ"], "record.pickle"))
+        protocol = join(self.roots["HQ"], "PROTOCOL-grand_test-curated.csv")
+        with open(protocol, encoding="utf-8") as f:
+            lines = [ln.strip().split(",") for ln in f]
+        want = "0" if method == "Real" else f"attack/{method}"
+        col = 1 if method == "Real" else 2
+        indices = []
+        for r in lines:
+            if r[col] == want and r[-1] == split_map[self.split]:
+                indices.extend(record[r[0].split("/")[-1]])
+        return self._finish(indices, method)
+
+    def _load_oulu(self, method):
+        split_map = {"train": "Train_files", "val": "Dev_files", "test": "Test_files"}
+        lst = _load_index(join(self.roots["OULU"], "lists", f"{method.lower()}_5points.pickle"))
+        return self._finish([p for p in lst if split_map[self.split] in p], method)
+
+    def _load_siwmv2(self, method):
+        label = "live" if method == "Real" else "all"
+        idx = _load_index(join(self.roots["SiWMv2"], "lists",
+                               f"{self.split.lower()}list_{label}.pickle"))
+        return self._finish(list(idx), method)
+
+
 def _not_ported(name):
     def refuse(*args, **kwargs):
         raise NotImplementedError(f"Dataset '{name}' is not ported to unidefense_torch yet "
@@ -273,7 +462,7 @@ LOADERS = {
     "CDF": _not_ported("CDF"),
     "WDF": _not_ported("WDF"),
     "OCIM": OCIMDataset,
-    "UniAttack": _not_ported("UniAttack"),
+    "UniAttack": UniAttack,
 }
 
 

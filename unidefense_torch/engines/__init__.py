@@ -1,25 +1,24 @@
 """Engine registry (unidefense_tpu/engines/__init__.py; the reference's
-engine/__init__.py:6-14). The UniAttack engine is not ported yet
-(ROADMAP.md queue 3)."""
+engine/__init__.py:6-14): FE (face forgery on FF++), OCIM (cross-domain
+face anti-spoofing) and UE (the UniAttack benchmark)."""
 
 from unidefense_torch.engines.base import AbstractEngine
 from unidefense_torch.engines.forgery import ForgeryEngine
 from unidefense_torch.engines.ocim import OCIMEngine
+from unidefense_torch.engines.uniattack import UniAttackEngine
 
 ENGINE = {
     "FE": ForgeryEngine,
     "OCIM": OCIMEngine,
+    "UE": UniAttackEngine,
 }
-_NOT_PORTED = ("UE",)
 
 
 def get_engine(name: str = "FE"):
-    if name in _NOT_PORTED:
-        raise KeyError(f"Engine '{name}' is not ported to unidefense_torch yet "
-                       "(ROADMAP.md queue 3)")
     if name not in ENGINE:
         raise KeyError(f"Engine '{name}' not found; available: {sorted(ENGINE)}")
     return ENGINE[name]
 
 
-__all__ = ["AbstractEngine", "ForgeryEngine", "OCIMEngine", "ENGINE", "get_engine"]
+__all__ = ["AbstractEngine", "ForgeryEngine", "OCIMEngine", "UniAttackEngine", "ENGINE",
+           "get_engine"]

@@ -9,8 +9,8 @@ unless the caller passes ``device`` (the tests pass ``"cpu"``).
 
 Randomness is indexed, as the JAX package's ``fold_in`` is: the train step
 ``s`` draws its flips, perturbation and dropout masks from a generator
-seeded from (seed, stream, s) (stream 12345 in FE, 54321 in OCIM), and
-eval batch ``b`` from (seed, 777, b); so
+seeded from (seed, stream, s) (stream 12345 in FE, 54321 in OCIM, 99999
+in UE), and eval batch ``b`` from (seed, 777, b); so
 a resumed run draws what an uninterrupted one would, with no generator
 state saved.
 
@@ -268,10 +268,11 @@ class AbstractEngine:
             self._mprint(f"Resume requested but no checkpoint at {self.run_dir}; starting fresh.")
             return
         self.state, meta = self.ckpt.restore(self.state, best=best)
-        self.best_acc = meta.get("best_acc", self.best_acc)
-        self.best_auc = meta.get("best_auc", self.best_auc)
-        self.best_hter = meta.get("best_hter", self.best_hter)
-        self.best_step = meta.get("best_step", self.best_step)
+        # every best-metric attribute the engine keeps in _meta (best_step,
+        # best_auc, ...; UE's best_hter_frame and best_thres too)
+        for key, value in meta.items():
+            if key.startswith("best_") and hasattr(self, key):
+                setattr(self, key, value)
         # a checkpoint whose sidecar a kill mid-save lost keeps its step in model.pt
         self.start_step = int(meta.get("step", self.state.step)) + 1
         if getattr(self, "plateau", None) is not None and "plateau" in meta:

@@ -3,8 +3,9 @@
     python -m unidefense_torch.main --config config_template/forgery/model_udeb4.yml --engine FE
     python -m unidefense_torch.main --config ... --engine FE --test
     python -m unidefense_torch.main --config config_template/ocim/model_udr18.yml --engine OCIM
+    python -m unidefense_torch.main --config config_template/uniatt/Prot1/model_udeb4.yml [--test]
 
-The same flags as the JAX CLI (--config, --engine {FE,OCIM,UE},
+The same flags as the JAX CLI (--config, --engine {FE,OCIM,UE}, UE by default,
 --local_rank/-r, --exp_id, --ds_config, --offline, --test, --num_devices).
 It runs on the GPU; without one it stops with ``resolve_device``'s error.
 """

@@ -34,14 +34,19 @@ def _gaussian_kernel_1d(kernel_size: int) -> tuple[float, ...]:
 
 def gaussian_blur(x: torch.Tensor, kernel_size: int = 5) -> torch.Tensor:
     """Separable gaussian blur with reflect padding (torchvision's), first
-    along H, then along W, as weighted sums of shifted views."""
+    along H, then along W, as weighted sums of shifted views, each pass
+    accumulated into one buffer in place."""
     k = _gaussian_kernel_1d(kernel_size)
     pad = kernel_size // 2
     h, w = x.shape[1], x.shape[2]
     xp = F.pad(nchw(x), (pad, pad, pad, pad), mode="reflect")
-    y = sum(k[i] * xp[:, :, i:i + h, :] for i in range(kernel_size))
-    y = sum(k[i] * y[:, :, :, i:i + w] for i in range(kernel_size))
-    return nhwc(y)
+    y = xp[:, :, 0:h, :] * k[0]
+    for i in range(1, kernel_size):
+        y.add_(xp[:, :, i:i + h, :], alpha=k[i])
+    out = y[:, :, :, 0:w] * k[0]
+    for i in range(1, kernel_size):
+        out.add_(y[:, :, :, i:i + w], alpha=k[i])
+    return nhwc(out)
 
 
 def downscale(x: torch.Tensor, bottleneck_scale: float = 0.75) -> torch.Tensor:
