@@ -51,8 +51,17 @@ Pillow's (and each encoder's quantisation tables against IJG's), the host
 blur against a float64 one and the PNG decoder against Pillow's; and the
 device corruption route
 (``[corrupt]``: ``DevicePipeline(corrupt=True)`` on the card against the
-CPU with the same draws). Any failure raises, so the exit code is not 0
-and no result line is printed.
+CPU with the same draws). The reference's weight files and the rest of
+serving: ``[ckpt]`` (for UDEB4, UDR18 and UDR50 from their seeded weights:
+the reference-format checkpoint served by ``Predictor.from_torch_checkpoint``
+bit for bit as the state_dict's Predictor, and the published backbone
+naming loaded by ``load_pretrained_extractor``), ``[serve-int8]`` (UDEB4
+380x380 b32 bf16 with ``quantize="int8"`` beside ``[serve]``), and in the
+engines: FE's ``extractor_weights`` (lukemelas EfficientNet-b4), the export
+of its run served alike by ``from_run`` and ``from_torch_checkpoint``, and
+its ``--test`` on Celeb-DF and WildDeepfake trees; OCIM's
+``extractor_weights`` (torchvision ResNet-18); UE's ``init_weights``. Any
+failure raises, so the exit code is not 0 and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -780,18 +789,14 @@ def _reset_counts() -> None:
         f.launches = 0
 
 
-def phase_serve(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
-                tag: str = "serve") -> None:
-    """Serving ``model`` at its resolution, b32 bf16, on a route: 3 requests
-    of 64 frames, each batch checked for its K1, K2 and K3 launches."""
+def _serve_requests(pred, model: str, res: int, v4_widths, tag: str) -> dict:
+    """3 requests of 64 frames through ``pred`` (b32) after a warm-up batch,
+    each timed; checks every batch's K1, K2 and K3 launches and the
+    probabilities. Returns the rate, the p50 per request, the peak memory
+    and the probabilities."""
     import numpy as np
     import torch
 
-    from unidefense_torch.inference import Predictor
-
-    res = model_spec(model)["res"]
-    pred = Predictor(model, model_spec(model)["model"], state_dict=weights, input_size=res,
-                     batch_size=32, dtype=torch.bfloat16, device="cuda", v4_widths=v4_widths)
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 256, (64, res, res, 3), dtype=np.uint8) for _ in range(3)]
     pred.predict_frames(requests[0][:32])  # warm-up: cuDNN plans, allocator
@@ -803,26 +808,225 @@ def phase_serve(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
         t0 = time.perf_counter()
         probs.append(pred.predict_frames(frames))
         times.append(time.perf_counter() - t0)
-    k1, k2, k2_bwd, k3, k3_bwd = _route_counts()
+    counts = _route_counts()
     batches = sum(-(-len(f) // 32) for f in requests)
     per_k2, per_k3 = per_forward_launches(model, res, v4_widths)
     want = (batches, per_k2 * batches, 0, per_k3 * batches, 0)
-    if (k1, k2, k2_bwd, k3, k3_bwd) != want:
-        raise AssertionError(f"launches K1, K2, K2-bwd, K3, K3-bwd = {(k1, k2, k2_bwd, k3, k3_bwd)}; "
+    if counts != want:
+        raise AssertionError(f"[{tag}] launches K1, K2, K2-bwd, K3, K3-bwd = {counts}; "
                              f"expected {want}")
     p = np.concatenate(probs)
     if p.shape != (192,) or not np.all(np.isfinite(p)) or p.min() < 0 or p.max() > 1:
-        raise AssertionError(f"bad probabilities: shape {p.shape}, range [{p.min()}, {p.max()}]")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    per_request = statistics.median(times) * 1e3
+        raise AssertionError(f"[{tag}] bad probabilities: shape {p.shape}, "
+                             f"range [{p.min()}, {p.max()}]")
+    return dict(rate=192 / sum(times), p50=statistics.median(times) * 1e3,
+                peak=torch.cuda.max_memory_allocated() / 2**30, probs=p, batches=batches,
+                counts=counts, per_k2=per_k2, per_k3=per_k3, first=requests[0][:32])
+
+
+def phase_serve(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
+                tag: str = "serve") -> dict:
+    """Serving ``model`` at its resolution, b32 bf16, on a route: 3 requests
+    of 64 frames, each batch checked for its K1, K2 and K3 launches.
+    Returns the readings of :func:`_serve_requests`."""
+    import torch
+
+    from unidefense_torch.inference import Predictor
+
+    res = model_spec(model)["res"]
+    pred = Predictor(model, model_spec(model)["model"], state_dict=weights, input_size=res,
+                     batch_size=32, dtype=torch.bfloat16, device="cuda", v4_widths=v4_widths)
+    r = _serve_requests(pred, model, res, v4_widths, tag)
+    p, (k1, k2, _, k3, _) = r["probs"], r["counts"]
     route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
     log(f"[{tag}] {model} {res}^2 b32 bf16 ({route}), 3 requests x 64 frames: "
-        f"{192 / sum(times):.2f} img/s, p50 {per_request:.2f} ms per request "
-        f"({per_request / 2:.2f} ms per batch), peak memory {peak:.3f} GiB, launches K1 {k1} "
-        f"K2 {k2} K3 {k3} over {batches} batches ({per_k2} K2 and {per_k3} K3 per batch), probs "
-        f"in [{p.min():.4f}, {p.max():.4f}], {card}")
+        f"{r['rate']:.2f} img/s, p50 {r['p50']:.2f} ms per request "
+        f"({r['p50'] / 2:.2f} ms per batch), peak memory {r['peak']:.3f} GiB, launches K1 {k1} "
+        f"K2 {k2} K3 {k3} over {r['batches']} batches ({r['per_k2']} K2 and {r['per_k3']} K3 "
+        f"per batch), probs in [{p.min():.4f}, {p.max():.4f}], {card}")
     phase_profile(card, f"one batch of {model} {res}^2 b32 bf16 ({route})",
-                  lambda: pred.predict_frames(requests[0][:32]))
+                  lambda: pred.predict_frames(r["first"]))
+    return r
+
+
+INT8_TOL = 0.05  # |dprob| of int8 against the unquantized Predictor: tests/test_quant.py:86
+
+
+def phase_serve_int8(card: str, weights: dict, served: dict, model: str = "UDEB4") -> None:
+    """Serving ``model`` with ``quantize="int8"`` at its resolution, b32
+    bf16, from the same weights and requests as [serve] (``served``, its
+    readings in this run): the parameter bytes of fp32 and int8, the
+    probabilities against the unquantized Predictor's within INT8_TOL, the
+    rate, p50 and peak memory beside [serve]'s; every batch dequantizes
+    into the model's weights and then runs K1 once and K2 per SFConv."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.inference import Predictor
+
+    res, cfg = model_spec(model)["res"], model_spec(model)["model"]
+    torch.cuda.empty_cache()
+    pred = Predictor(model, cfg, state_dict=weights, input_size=res, batch_size=32,
+                     dtype=torch.bfloat16, device="cuda", quantize="int8")
+    fp32_bytes = Predictor(model, cfg, state_dict=weights, input_size=res,
+                           device="cpu").param_bytes()
+    int8_bytes = pred.param_bytes()
+    r = _serve_requests(pred, model, res, frozenset(), "serve-int8")
+    d = float(np.abs(r["probs"] - served["probs"]).max())
+    if not d <= INT8_TOL:
+        raise AssertionError(f"[serve-int8] max |dprob| {d} against the unquantized Predictor "
+                             f"(tol {INT8_TOL})")
+    log(f"[serve-int8] {model} {res}^2 b32 bf16 quantize='int8', 3 requests x 64 frames: "
+        f"param_bytes fp32 {fp32_bytes} int8 {int8_bytes} (ratio {int8_bytes / fp32_bytes:.4f}); "
+        f"max |dprob| against the unquantized bf16 Predictor {d:.4g} over 192 frames (tol "
+        f"{INT8_TOL}); {r['rate']:.2f} img/s, p50 {r['p50']:.2f} ms per request, peak memory "
+        f"{r['peak']:.3f} GiB, beside [serve] {served['rate']:.2f} img/s, p50 "
+        f"{served['p50']:.2f} ms, peak {served['peak']:.3f} GiB; launches K1 {r['counts'][0]} "
+        f"K2 {r['counts'][1]} over {r['batches']} batches ({r['per_k2']} K2 per batch); {card}")
+
+
+# the published backbones' naming: each model's backbone prefix in the port
+BACKBONE_PREFIX = {"UDEB4": "backbone.", "UDR18": "extractor.", "UDR50": "extractor."}
+BACKBONE_HEAD = ("_fc.", "layer4.", "fc.")  # in the files, built by no extractor
+
+
+def _resnet_tail(model: str, rand) -> dict:
+    """torchvision's ``layer4`` and ``fc`` of ResNet-18 (BasicBlocks) or
+    ResNet-50 (Bottlenecks), which the extractors do not build."""
+    bottleneck = model == "UDR50"
+    inp, out = (1024, 2048) if bottleneck else (256, 512)
+    convs = ((1, 512), (3, 512), (1, out)) if bottleneck else ((3, 512), (3, 512))
+    sd = {}
+
+    def bn(key, c):
+        sd.update({f"{key}.weight": 1 + rand(c), f"{key}.bias": rand(c),
+                   f"{key}.running_mean": rand(c), f"{key}.running_var": 1 + rand(c).abs()})
+
+    for b in range(3 if bottleneck else 2):
+        cin = inp if b == 0 else out
+        for i, (k, c) in enumerate(convs, start=1):
+            sd[f"layer4.{b}.conv{i}.weight"] = rand(c, cin, k, k)
+            bn(f"layer4.{b}.bn{i}", c)
+            cin = c
+        if b == 0:
+            sd["layer4.0.downsample.0.weight"] = rand(out, inp, 1, 1)
+            bn("layer4.0.downsample.1", out)
+    sd["fc.weight"], sd["fc.bias"] = rand(1000, out), rand(1000)
+    return sd
+
+
+def published_backbone(weights: dict, model: str) -> dict:
+    """The backbone of ``weights`` as its public source names it, with the
+    tensors such files carry and the extractors do not build: lukemelas
+    EfficientNet-b4 with a random ``_fc`` head; torchvision ResNet-18 or
+    ResNet-50 with a random ``layer4`` and ``fc``. No SFConv-only tensors
+    (``freq_conv``, ``sf_coef``): published files lack them."""
+    import torch
+
+    from unidefense_torch.models.convert import SF_ONLY
+
+    prefix = BACKBONE_PREFIX[model]
+    sd = {k[len(prefix):]: v.clone() for k, v in weights.items()
+          if k.startswith(prefix) and not any(s in k for s in SF_ONLY)}
+    gen = torch.Generator().manual_seed(SEED + 30)
+
+    def rand(*shape):
+        return 0.01 * torch.randn(*shape, generator=gen)
+
+    if model == "UDEB4":
+        c = sd["_conv_head.weight"].shape[0]
+        sd["_fc.weight"], sd["_fc.bias"] = rand(1000, c), rand(1000)
+    else:
+        sd.update(_resnet_tail(model, rand))
+    return sd
+
+
+def phase_ckpt(card: str, weights: dict, model: str) -> None:
+    """The reference's files on the card, for ``model`` at its resolution
+    from its seeded weights: the whole model written by
+    ``save_torch_checkpoint`` and served by ``Predictor.from_torch_checkpoint``
+    (b32 bf16; a different seed for its init), whose weights equal the
+    state_dict's and whose probabilities on 64 frames equal, bit for bit,
+    those of the Predictor built from the state_dict, each through K1 and
+    K2; and the backbone in its published naming
+    (:func:`published_backbone`) loaded by ``load_pretrained_extractor`` into
+    a freshly seeded model: every backbone tensor equal to the file's, the
+    file's head unused, every other tensor (the SFConv-only ones among
+    them) its init."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from unidefense_torch.inference import Predictor
+    from unidefense_torch.models.convert import (SF_ONLY, load_pretrained_extractor,
+                                                 save_torch_checkpoint)
+    from unidefense_torch.models.registry import build_model
+
+    spec = model_spec(model)
+    res, cfg = spec["res"], spec["model"]
+    tmp = tempfile.mkdtemp(prefix="ud_ckpt_")
+    try:
+        net = build_model(model, cfg)
+        net.load_state_dict(weights, strict=True)
+        path = os.path.join(tmp, f"{model}.bin")
+        t0 = time.perf_counter()
+        save_torch_checkpoint(net, path, step=0)
+        write_s = time.perf_counter() - t0
+        kw = dict(input_size=res, batch_size=32, dtype=torch.bfloat16, device="cuda")
+        frames = np.random.default_rng(SEED + 40).integers(0, 256, (64, res, res, 3),
+                                                           dtype=np.uint8)
+        _reset_counts()
+        ref = Predictor(model, cfg, state_dict=weights, **kw).predict_frames(frames)
+        t0 = time.perf_counter()
+        served = Predictor.from_torch_checkpoint(path, model, cfg, seed=SEED + 1, **kw)
+        load_s = time.perf_counter() - t0
+        got_sd = served.model.state_dict()
+        off = [k for k, v in weights.items() if not k.endswith("num_batches_tracked")
+               and not torch.equal(got_sd[k].cpu(), v)]
+        got = served.predict_frames(frames)
+        per_k2, _ = per_forward_launches(model, res, frozenset())
+        counts = _route_counts()
+        if off or not np.array_equal(got, ref) or counts[:2] != (4, 4 * per_k2):
+            raise AssertionError(f"[ckpt] {model}: {len(off)} tensors off the state_dict "
+                                 f"({off[:3]}), probabilities equal {np.array_equal(got, ref)} "
+                                 f"(max |d| {float(np.abs(got - ref).max())}), launches K1, K2 "
+                                 f"{counts[:2]}, expected {(4, 4 * per_k2)}")
+        size = os.path.getsize(path)
+        del served
+        torch.cuda.empty_cache()
+
+        prefix = BACKBONE_PREFIX[model]
+        pub = published_backbone(weights, model)
+        bpath = os.path.join(tmp, f"{model}_backbone.pth")
+        torch.save(pub, bpath)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 1)
+            fresh = build_model(model, cfg)
+        before = {k: v.clone() for k, v in fresh.state_dict().items()}
+        load_pretrained_extractor(fresh, bpath, model)
+        after = fresh.state_dict()
+        used = {k for k in pub if prefix + k in after}
+        unused = [k for k in pub if k not in used]
+        bad = [k for k in used if not torch.equal(after[prefix + k], pub[k])]
+        kept = [k for k in after if not (k.startswith(prefix) and k[len(prefix):] in used)]
+        moved = [k for k in kept if not torch.equal(after[k], before[k])]
+        sf = [k for k in kept if k.startswith(prefix) and any(s in k for s in SF_ONLY)]
+        if bad or moved or not sf or not unused or \
+                any(not k.startswith(BACKBONE_HEAD) for k in unused):
+            raise AssertionError(f"[ckpt] {model} backbone: {len(bad)} tensors off the file "
+                                 f"{bad[:3]}, {len(moved)} others moved {moved[:3]}, {len(sf)} "
+                                 f"SFConv-only kept, unused {unused[:3]}")
+        log(f"[ckpt] {model} {res}^2: save_torch_checkpoint {size} bytes in {write_s:.2f} s; "
+            f"Predictor.from_torch_checkpoint on the card in {load_s:.2f} s, its {len(weights)} "
+            f"tensors equal to the state_dict's, probabilities on 64 frames b32 bf16 bit for bit "
+            f"those of the Predictor built from the state_dict (launches K1 {counts[0]} K2 "
+            f"{counts[1]}); the published backbone ({len(pub)} tensors): {len(used)} loaded "
+            f"equal to the file's, {len(unused)} of its head unused, {len(sf)} SFConv-only and "
+            f"{len(kept) - len(sf)} other tensors kept at their init; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # kernel-name fragments -> group of the device-time breakdown, first match wins
@@ -1193,16 +1397,20 @@ def _decoder_against_pillow(blob: bytes, size: int) -> str:
 
 
 def _engine_configs(out_dir: str, model_name: str, run_id: str, model_yml: str = None,
+                    model_keys: dict = None, config_keys: dict = None,
                     **data) -> tuple[str, str]:
-    """``model_name``'s YAML (or ``model_yml``) and the data YAML it names,
-    with the keys of ``data`` set (the tree's root, the cadence), 6 steps
-    and a fresh id, written into ``out_dir``; and the same with resume on
-    and 9 steps."""
+    """``model_name``'s YAML (or ``model_yml``) with the keys of
+    ``model_keys`` and ``config_keys`` set in its ``model:`` and ``config:``
+    sections, and the data YAML it names, with the keys of ``data`` set (the
+    tree's root, the cadence), 6 steps and a fresh id, written into
+    ``out_dir``; and the same with resume on and 9 steps."""
     import yaml
 
     repo = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(repo, model_yml or MODELS[model_name][0])) as f:
         model = yaml.safe_load(f)
+    model["model"].update(model_keys or {})
+    model["config"].update(config_keys or {})
     with open(os.path.join(repo, model["data"]["file"])) as f:
         data_yml = yaml.safe_load(f)
     paths = []
@@ -1223,11 +1431,13 @@ def _engine_configs(out_dir: str, model_name: str, run_id: str, model_yml: str =
 class EngineRuns:
     """``python -m unidefense_torch.main --engine <name>`` in process, three
     times from one pair of configs (:func:`_engine_configs`): train 6 steps,
-    ``--test`` from the best checkpoint, resume to step 9. Around each
+    ``--test`` from the best checkpoint, resume to step 9; then a ``--test``
+    of the first config with each data YAML of ``test_configs``. Around each
     main() call the launch counts are set to 0 and read after; every train
     step is timed between two synchronises with its own launch deltas,
-    every ``load_item`` and ``load_batch`` call and every ``score_dataset``
-    are timed. Checks each run's device and launches: ``step_want`` per
+    every host decode (``finish_item``: blob reads, decode, the host
+    corruptions) and ``load_batch`` call and every ``score_dataset`` are
+    timed. Checks each run's device and launches: ``step_want`` per
     train step and ``eval_want`` per eval batch (K1, K2, K2-bwd, K3,
     K3-bwd); and that every scored frame has a probability in [0, 1]."""
 
@@ -1236,19 +1446,20 @@ class EngineRuns:
         self.dataset_cls, self.engine_cls = dataset_cls, engine_cls
         self.step_want, self.eval_want = step_want, eval_want
         self.steps: list = []    # (count deltas, start, end) of every train step
-        self.loads: list = []    # (frames, seconds) of every load_item
+        self.loads: list = []    # (frames, seconds) of every finish_item
         self.batches: list = []  # seconds of every _load_batch (a step's streams)
         self.evals: list = []    # (batches, seconds) of every score_dataset
         self.runs: list = []     # (engine, seconds, steps, eval batches) of every main()
         self.totals = (0,) * 5
 
-    def run(self, root: str, first: str, resumed: str, test_argv: tuple = ()):
+    def run(self, root: str, first: str, resumed: str, test_argv: tuple = (),
+            test_configs: tuple = ()):
         import torch
 
         from unidefense_torch import main as cli
         from unidefense_torch.engines import base
 
-        make_train_step, load_item = base.make_train_step, self.dataset_cls.load_item
+        make_train_step, finish_item = base.make_train_step, self.dataset_cls.finish_item
         load_batch, score_dataset = self.engine_cls._load_batch, base.AbstractEngine.score_dataset
         steps, loads, batches, evals = self.steps, self.loads, self.batches, self.evals
 
@@ -1265,10 +1476,10 @@ class EngineRuns:
                 return out
             return timed
 
-        def timed_load_item(ds, items, labels, *args, **kwargs):
+        def timed_finish_item(ds, plan):
             t0 = time.perf_counter()
-            out = load_item(ds, items, labels, *args, **kwargs)
-            loads.append((len(items), time.perf_counter() - t0))
+            out = finish_item(ds, plan)
+            loads.append((len(plan["path"]), time.perf_counter() - t0))
             return out
 
         def timed_load_batch(engine, sels):
@@ -1292,7 +1503,7 @@ class EngineRuns:
         try:
             os.chdir(root)  # runs/ lands in the temporary directory
             base.make_train_step = timed_make_train_step
-            self.dataset_cls.load_item = timed_load_item
+            self.dataset_cls.finish_item = timed_finish_item
             self.engine_cls._load_batch = timed_load_batch
             base.AbstractEngine.score_dataset = timed_score_dataset
             torch.cuda.empty_cache()
@@ -1300,7 +1511,9 @@ class EngineRuns:
             common = ["--engine", self.engine, "--offline"]
             for argv in (["--config", first, *common],
                          ["--config", first, *common, *test_argv, "--test"],
-                         ["--config", resumed, *common]):
+                         ["--config", resumed, *common],
+                         *(["--config", first, *common, "--ds_config", ds, "--test"]
+                           for ds in test_configs)):
                 n_steps, n_evals = len(steps), len(evals)
                 _reset_counts()
                 t0 = time.perf_counter()
@@ -1325,7 +1538,7 @@ class EngineRuns:
                 self.runs.append((engine, seconds, len(new_steps), n_batches))
             self.peak = torch.cuda.max_memory_allocated() / 2**30
         finally:
-            base.make_train_step, self.dataset_cls.load_item = make_train_step, load_item
+            base.make_train_step, self.dataset_cls.finish_item = make_train_step, finish_item
             self.engine_cls._load_batch = load_batch
             base.AbstractEngine.score_dataset = score_dataset
             sys.stdout = stdout
@@ -1339,7 +1552,7 @@ class EngineRuns:
         those lines)."""
         import numpy as np
 
-        trained, _, again = (r[0] for r in self.runs)
+        trained, _, again = (r[0] for r in self.runs[:3])
         run_dir = os.path.join(root, trained.run_dir)
         for name in ("best", "latest"):
             if not os.path.isdir(os.path.join(run_dir, "ckpt", name)):
@@ -1381,32 +1594,158 @@ class EngineRuns:
                     loop_rate=batch * len(loop_ms) / (sum(loop_ms) / 1e3), loop_ms=loop_ms)
 
 
-def phase_engine_fe(card: str) -> tuple:
+# the cross-dataset --test trees of [engine-fe]: Celeb-DF v2's videos of PNG
+# frames, the test videos listed; WildDeepfake's per-split pickles of JPEG
+# frame paths
+CDF_VIDEOS = {"YouTube-real": ["00000", "00001", "00002"], "Celeb-real": ["id0_0000", "id1_0000"],
+              "Celeb-synthesis": ["id0_id1_0000", "id0_id2_0000", "id1_id0_0000", "id1_id2_0000"]}
+CDF_TEST = ("YouTube-real/00001", "Celeb-real/id1_0000", "Celeb-synthesis/id0_id2_0000",
+            "Celeb-synthesis/id1_id2_0000")
+
+
+def _write_cdf(root: str, frames: int = 8, size: int = 320) -> int:
+    """A Celeb-DF v2 tree: ``<method>/images/<video>/<f>.png`` noise frames
+    (Pillow, zlib level 1) and List_of_testing_videos.txt naming CDF_TEST.
+    Returns the number of frames."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 50)
+    n = 0
+    for method, videos in CDF_VIDEOS.items():
+        for vid in videos:
+            os.makedirs(os.path.join(root, method, "images", vid))
+            for f in range(frames):
+                buf = io.BytesIO()
+                Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+                    buf, format="PNG", compress_level=1)
+                with open(os.path.join(root, method, "images", vid, f"{f:04d}.png"), "wb") as out:
+                    out.write(buf.getvalue())
+                n += 1
+    with open(os.path.join(root, "List_of_testing_videos.txt"), "w") as f:
+        for video in CDF_TEST:
+            f.write(f"{int('real' in video)} {video}.mp4\n")
+    return n
+
+
+def _write_wdf(root: str, videos: int = 4, frames: int = 8, size: int = 320) -> int:
+    """A WildDeepfake tree: ``<split>/<method>.pickle`` of split-relative
+    paths of JPEG noise frames (the port's encoder), ``videos`` real and
+    fake videos per split. Returns the number of test frames."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.data import native
+
+    rng = np.random.default_rng(SEED + 51)
+    for split in ("train", "test"):
+        for method in ("real", "fake"):
+            items = []
+            for v in range(videos):
+                for f in range(frames):
+                    rel = f"{method}_{v:03d}/{f:04d}.jpg"
+                    path = os.path.join(root, split, rel)
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    with open(path, "wb") as out:
+                        out.write(native.encode_jpeg(
+                            rng.integers(0, 256, (size, size, 3), dtype=np.uint8), 95))
+                    items.append(rel)
+            torch.save(items, os.path.join(root, split, f"{method}.pickle"))
+    return 2 * videos * frames
+
+
+def _cross_dataset_yml(root: str, name: str, tree: str) -> str:
+    """config_template/forgery/data_<name>.yml with its root on ``tree``."""
+    import yaml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "config_template", "forgery", f"data_{name}.yml")) as f:
+        data = dict(yaml.safe_load(f), root=tree)
+    path = os.path.join(root, f"data_{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f)
+    return path
+
+
+def _served_alike(run_dir: str, export: str, model: str, card: str) -> str:
+    """``Predictor.from_run`` of ``run_dir`` and ``Predictor.from_torch_checkpoint``
+    of its export, b32 bf16 on the card: bit-equal probabilities on 32
+    frames."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.inference import Predictor
+
+    spec = model_spec(model)
+    kw = dict(input_size=spec["res"], batch_size=32, dtype=torch.bfloat16, device="cuda")
+    frames = np.random.default_rng(SEED + 41).integers(0, 256, (32, spec["res"], spec["res"], 3),
+                                                       dtype=np.uint8)
+    a = Predictor.from_run(run_dir, model, spec["model"], **kw).predict_frames(frames)
+    b = Predictor.from_torch_checkpoint(export, model, spec["model"], seed=SEED + 1,
+                                        **kw).predict_frames(frames)
+    torch.cuda.empty_cache()
+    if not np.array_equal(a, b):
+        raise AssertionError(f"[engine-fe] from_run and from_torch_checkpoint of the export "
+                             f"differ by {float(np.abs(a - b).max())}")
+    return (f"ckpt/best exported by unidefense_torch.tools.export_checkpoint "
+            f"({os.path.getsize(export)} bytes): Predictor.from_torch_checkpoint of it and "
+            f"Predictor.from_run of the run give bit-equal probabilities on 32 frames b32 bf16 "
+            f"(in [{float(a.min()):.4f}, {float(a.max()):.4f}])")
+
+
+def phase_engine_fe(card: str, weights: dict) -> tuple:
     """``python -m unidefense_torch.main --engine FE`` in process: UDEB4 at
     380^2, b10+10, bf16, AdamW amsgrad, StepLR (model_udeb4.yml,
-    data_ffc23.yml) on a synthetic FF++ tree. Trains 6 steps (validation at
-    3 and 6), tests from the best checkpoint, resumes to step 9. Checks the
-    device, the printed lines, the checkpoints, the resume, and every train
-    step's launches of K1, K2 and K2-bwd (1, 96, 48) and every eval batch's
-    (1, 24); each run's launch totals are read around its main() call.
-    Returns the launch totals over the three runs."""
+    data_ffc23.yml) on a synthetic FF++ tree, its ``extractor_weights`` a
+    lukemelas-format EfficientNet-b4 file of the seeded backbone
+    (``weights``). Trains 6 steps (validation at 3 and 6), tests from the
+    best checkpoint, resumes to step 9; exports ``ckpt/best`` and serves the
+    export and the run alike (:func:`_served_alike`); then ``--test`` of the
+    run on Celeb-DF (data_cdf.yml, PNG frames) and on WildDeepfake
+    (data_wdf.yml). Checks the device, the printed lines (the backbone
+    loaded), the checkpoints, the resume, and every train step's launches
+    of K1, K2 and K2-bwd (1, 96, 48) and every eval batch's (1, 24); each
+    run's launch totals are read around its main() call. Returns the launch
+    totals over the five runs."""
     import shutil
     import tempfile
 
-    from unidefense_torch.data.datasets import FaceForensics
+    import torch
+
+    from unidefense_torch.data.datasets import AbstractDataset
     from unidefense_torch.engines.forgery import ForgeryEngine
+    from unidefense_torch.tools import export_checkpoint
 
     per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
-    runs = EngineRuns("engine-fe", "FE", FaceForensics, ForgeryEngine,
+    runs = EngineRuns("engine-fe", "FE", AbstractDataset, ForgeryEngine,
                       (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
     root = tempfile.mkdtemp(prefix="ud_engine_fe_")
     try:
         tree = os.path.join(root, "ffpp")
         _write_ffpp(tree, card)
-        runs.run(root, *_engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}", root=tree,
-                                        fake_method=["Deepfakes"], log_steps=3, val_steps=3))
-        losses, aucs, _ = runs.check(root, n_iters=3, eval_lines=4)
+        t0 = time.perf_counter()
+        n_cdf = _write_cdf(os.path.join(root, "cdf"))
+        n_wdf = _write_wdf(os.path.join(root, "wdf"))
+        trees_s = time.perf_counter() - t0
+        cross = (_cross_dataset_yml(root, "cdf", os.path.join(root, "cdf")),
+                 _cross_dataset_yml(root, "wdf", os.path.join(root, "wdf")))
+        backbone = os.path.join(root, "adv-efficientnet-b4.pth")
+        torch.save(published_backbone(weights, "UDEB4"), backbone)
+        runs.run(root, *_engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}",
+                                        model_keys={"extractor_weights": backbone}, root=tree,
+                                        fake_method=["Deepfakes"], log_steps=3, val_steps=3),
+                 test_configs=cross)
+        losses, aucs, scored = runs.check(root, n_iters=3, eval_lines=6)
         trained, again = runs.runs[0][0], runs.runs[2][0]
+        run_dir = os.path.join(root, trained.run_dir)
+        with open(os.path.join(run_dir, "records.txt")) as f:
+            if f"Loaded pretrained extractor weights from {backbone}." not in f.read():
+                raise AssertionError("[engine-fe] no 'Loaded pretrained extractor weights' line")
+        export = os.path.join(root, "export.bin")
+        export_checkpoint.main(["--run", run_dir, "--out", export, "--best"])
+        served = _served_alike(run_dir, export, "UDEB4", card)
         bs = trained.data_cfg["train_batch_size"]
         r = runs.rates(2 * bs)
         train_loads = [s * 1e3 for n, s in runs.loads if n == bs]
@@ -1419,14 +1758,25 @@ def phase_engine_fe(card: str) -> tuple:
             f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
             f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
             f"bare step; host decode p50 {statistics.median(train_loads):.2f} ms per {bs}-frame "
-            f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation "
-            f"{[round(v, 2) for v in val_ms]} ms per b64/b96 batch with its decode; peak memory "
-            f"{runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs]} s; {card}")
+            f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation and test "
+            f"{[round(v, 2) for v in val_ms[:4]]} ms per b64/b96 batch with its decode; peak "
+            f"memory {runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs[:3]]} s; "
+            f"{card}")
         log(f"[engine-fe] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
             f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
             f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
-            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
-            f"{card}")
+            f"{losses}; AUC {aucs}; extractor_weights {os.path.basename(backbone)} (lukemelas "
+            f"naming, its _fc unused) loaded; ckpt/best and ckpt/latest written; resumed from "
+            f"step 6 to 9; {served}; {card}")
+        # test.txt's reports in run order: FF++, then Celeb-DF and WildDeepfake
+        tests = [ln for ln in scored if ln.startswith("Test |")][-2:]
+        for (engine, seconds, _, _), (b, s), name, n, line in zip(
+                runs.runs[3:], runs.evals[-2:], ("Celeb-DF", "WildDeepfake"), (n_cdf, n_wdf),
+                tests):
+            log(f"[engine-fe] --test on {name} ({type(engine.test_set).__name__}, "
+                f"{len(engine.test_set)} test frames of {n} written, 320^2 -> 380^2, b96): "
+                f"{line}; {s * 1e3 / b:.2f} ms per b96 test batch with its decode over {b} "
+                f"batches; run {seconds:.2f} s; trees written in {trees_s:.2f} s; {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return runs.totals
@@ -1533,7 +1883,7 @@ def _cubic_against_torch(card: str) -> str:
             "levels of Pillow's")
 
 
-def phase_engine_ocim(card: str) -> tuple:
+def phase_engine_ocim(card: str, weights: dict) -> tuple:
     """``python -m unidefense_torch.main --engine OCIM`` in process: UDR18 at
     256^2, three source domains (O, C, I) x 10 real + 10 fake = b30+30,
     bf16, AdamW amsgrad (model_udr18.yml, data_m.yml), RandomResizedCrop
@@ -1542,9 +1892,14 @@ def phase_engine_ocim(card: str) -> tuple:
     (validation on M at 3 and 6, b64, margin 0.3, video-level EER), tests
     from the best checkpoint (b96), resumes to step 9. Checks as
     [engine-fe], with launches per train step K1 1, K2 32, K2-bwd 16 and per
-    eval batch K1 1, K2 8. Returns the launch totals over the three runs."""
+    eval batch K1 1, K2 8. Its ``extractor_weights``: a torchvision-format
+    ResNet-18 file of the seeded backbone (``weights``), whose ``layer4``
+    and ``fc`` go unused; the log must show it loaded. Returns the launch
+    totals over the three runs."""
     import shutil
     import tempfile
+
+    import torch
 
     from unidefense_torch.data.datasets import OCIMSubDataset
     from unidefense_torch.engines.ocim import OCIMEngine
@@ -1563,9 +1918,15 @@ def phase_engine_ocim(card: str) -> tuple:
             f"{card}")
         # test_fpv 6 of each video's 8 frames: the validation and test splits
         # resample, 36 frames each
-        runs.run(root, *_engine_configs(root, "UDR18", f"chip-smoke-{os.getpid()}", root=tree,
+        backbone = os.path.join(root, "resnet18.pth")
+        torch.save(published_backbone(weights, "UDR18"), backbone)
+        runs.run(root, *_engine_configs(root, "UDR18", f"chip-smoke-{os.getpid()}",
+                                        model_keys={"extractor_weights": backbone}, root=tree,
                                         log_steps=1, val_steps=3, test_fpv=6))
         losses, aucs, scored = runs.check(root, n_iters=9, eval_lines=4)
+        with open(os.path.join(root, runs.runs[0][0].run_dir, "records.txt")) as f:
+            if f"Loaded pretrained extractor weights from {backbone}." not in f.read():
+                raise AssertionError("[engine-ocim] no 'Loaded pretrained extractor weights' line")
         if not (all("EER" in ln and "HTER" in ln for ln in scored) and "APCER" in scored[-1]):
             raise AssertionError(f"[engine-ocim] Eval Step / Test lines {scored}")
         trained, tested, again = (x[0] for x in runs.runs)
@@ -1594,8 +1955,9 @@ def phase_engine_ocim(card: str) -> tuple:
         log(f"[engine-ocim] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
             f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
             f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
-            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
-            f"{card}")
+            f"{losses}; AUC {aucs}; extractor_weights {os.path.basename(backbone)} (torchvision "
+            f"naming, its layer4 and fc unused) loaded; ckpt/best and ckpt/latest written; "
+            f"resumed from step 6 to 9; {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return runs.totals
@@ -1959,7 +2321,8 @@ def _unpadded(eval_step):
 UE_EVAL_TOL = 2e-2  # a probability, bf16 on the card against fp32: [parity]'s bound
 
 
-def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) -> str:
+def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, weights: dict,
+                         card: str) -> str:
     """The UE engine's validation on the card against the same on the CPU:
     the Test-stage engine of the distorted config (its best checkpoint
     restored), with the validation batch of training (b64), scores val-real
@@ -1967,16 +2330,17 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
     split (b96, the host OneOf): ``_val_threshold`` then ``_test_metrics``,
     as ``validate`` runs them. The card runs bf16 through K1 and K2 (its
     launches checked per eval batch), the CPU fp32 through the plain
-    versions, on the same uint8 batches (the card's, replayed: the two
-    prefetch threads of ``score_dataset`` draw the OneOf in either order)
-    and the same weights: the checkpoint's, which 3 steps from random init
+    versions, each engine decoding its own batches: ``score_dataset`` makes
+    every draw of the OneOf on its calling thread in batch order, so the
+    two engines' uint8 batches must be equal, and are checked to be. The
+    same weights in both: the checkpoint's, which 3 steps from random init
     leave with eval-mode BatchNorm statistics that tie every probability
-    (threshold inf), are replaced in both by ``seeded_weights``' calibrated
-    ones. The CPU scores only the rows of each batch that are not padding
-    (``score_dataset`` pads with copies of the last frame, and each frame
-    is scored on its own in eval mode). Every frame's probability within
-    UE_EVAL_TOL, the threshold finite and within UE_EVAL_TOL, the
-    probabilities spread."""
+    (threshold inf), are replaced in both by ``weights`` (``seeded_weights``'
+    calibrated ones). The CPU scores only the rows of each batch that are
+    not padding (``score_dataset`` pads with copies of the last frame, and
+    each frame is scored on its own in eval mode). Every frame's
+    probability within UE_EVAL_TOL, the threshold finite and within
+    UE_EVAL_TOL, the probabilities spread."""
     import numpy as np
     import torch
 
@@ -1985,10 +2349,9 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
     from unidefense_torch.engines import base
     from unidefense_torch.engines.uniattack import UniAttackEngine
 
-    weights = seeded_weights(card, "UDEB4")
     per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
-    score_dataset, load_item = base.AbstractEngine.score_dataset, UniAttack.load_item
-    batches, probs, runs, now = {}, {}, {}, {}
+    score_dataset, finish_item = base.AbstractEngine.score_dataset, UniAttack.finish_item
+    batches, probs, runs, now = {"cuda": {}, "cpu": {}}, {}, {}, {}
 
     def scored(engine, dataset, batch_size, *args, **kwargs):
         got = score_dataset(engine, dataset, batch_size, *args, **kwargs)
@@ -1996,17 +2359,15 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
         runs[now["device"]][1] += -(-len(dataset) // batch_size)
         return got
 
-    def recorded(ds, items, labels, *args, **kwargs):
-        key = (ds.split, tuple(items))
-        if now["device"] == "cpu":  # the card's batches, replayed
-            return {k: (v.copy() if hasattr(v, "copy") else v) for k, v in batches[key].items()}
-        batches[key] = load_item(ds, items, labels, *args, **kwargs)
-        return batches[key]
+    def recorded(ds, plan):
+        out = finish_item(ds, plan)
+        batches[now["device"]][(ds.split, tuple(plan["path"]))] = out["images"].copy()
+        return out
 
     cwd, stdout = os.getcwd(), sys.stdout
     try:
         os.chdir(root)
-        base.AbstractEngine.score_dataset, UniAttack.load_item = scored, recorded
+        base.AbstractEngine.score_dataset, UniAttack.finish_item = scored, recorded
         for device in ("cuda", "cpu"):
             config = load_config(model_path, engine="UE", ds_config=data_path)
             config["config"]["offline"] = True
@@ -2027,9 +2388,14 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
             sys.stdout = stdout
             del engine
     finally:
-        base.AbstractEngine.score_dataset, UniAttack.load_item = score_dataset, load_item
+        base.AbstractEngine.score_dataset, UniAttack.finish_item = score_dataset, finish_item
         sys.stdout = stdout
         os.chdir(cwd)
+    same = batches["cuda"].keys() == batches["cpu"].keys() and all(
+        np.array_equal(v, batches["cpu"][k]) for k, v in batches["cuda"].items())
+    if not same:
+        raise AssertionError(f"[engine-ue] the card's and the CPU's engines decoded different "
+                             f"batches ({len(batches['cuda'])} and {len(batches['cpu'])})")
     (val, video, frame, counts, gpu_s), n_batches = runs["cuda"][0], runs["cuda"][1]
     (c_val, c_video, c_frame, _, cpu_s) = runs["cpu"][0]
     want = (n_batches, n_batches * per_k2, 0, 0, 0)
@@ -2044,7 +2410,8 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
                              f"probabilities, max |dprob| {d}, thresholds {thr} and {c_thr}, "
                              f"spread {np.ptp(cpu)} (tol {UE_EVAL_TOL})")
     return (f"validation as training runs it (val b64, its EER threshold on the distorted test "
-            f"split b96), card bf16 vs CPU fp32 from the same calibrated weights and batches, "
+            f"split b96), card bf16 vs CPU fp32 from the same calibrated weights, each engine "
+            f"decoding its own {len(batches['cuda'])} batches, all equal (no replay), "
             f"{len(gpu)} frames in {n_batches} card batches (launches {counts[:2]}): max |dprob| "
             f"{d:.3g} (tol {UE_EVAL_TOL}), probabilities {float(cpu.min()):.4f}-"
             f"{float(cpu.max()):.4f}; threshold {thr:.6f} vs {c_thr:.6f}; val AUC "
@@ -2054,7 +2421,7 @@ def _ue_eval_against_cpu(root: str, model_path: str, data_path: str, card: str) 
             f"{c_video['AUC']:.4f}; {gpu_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
 
 
-def phase_engine_ue(card: str) -> tuple:
+def phase_engine_ue(card: str, weights: dict) -> tuple:
     """``python -m unidefense_torch.main --engine UE`` in process: UDEB4 at
     380^2, b10+10, bf16, AdamW amsgrad, StepLR, crop nocrop
     (config_template/uniatt/Prot1/model_udeb4.yml, data_ffpp.yml:
@@ -2067,12 +2434,18 @@ def phase_engine_ue(card: str) -> tuple:
     [engine-fe], with launches per train step K1 1, K2 96, K2-bwd 48 and per
     eval batch K1 1, K2 24; times the host OneOf per test batch; holds the
     validation on the card against the CPU (:func:`_ue_eval_against_cpu`).
-    Celeb-DF's frames are PNG. Returns the launch totals over the three
-    runs."""
+    Celeb-DF's frames are PNG. The runs' ``config.init_weights`` is a
+    reference-format file of the seeded UDEB4 ``weights``; right after the
+    first run's build its model must equal them. Returns the launch totals
+    over the three runs."""
     import shutil
     import tempfile
 
+    import torch
     import yaml
+
+    from unidefense_torch.models.convert import save_torch_checkpoint
+    from unidefense_torch.models.registry import build_model
 
     from unidefense_torch.data.datasets import UniAttack
     from unidefense_torch.data.transforms import HostPipeline
@@ -2083,6 +2456,15 @@ def phase_engine_ue(card: str) -> tuple:
                       (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
     root = tempfile.mkdtemp(prefix="ud_engine_ue_")
     apply, oneof = HostPipeline.apply, []
+    build, built = UniAttackEngine._build_training, []
+
+    def checked_build(engine, *args, **kwargs):
+        model = build(engine, *args, **kwargs)
+        if not built:  # the first run's fresh build: the file's weights, before any step
+            sd = engine.state.model.state_dict()
+            built.append([k for k, v in weights.items() if not k.endswith("num_batches_tracked")
+                          and not torch.equal(sd[k].cpu(), v)])
+        return model
 
     def timed_apply(host, frames, draws):
         t0 = time.perf_counter()
@@ -2098,19 +2480,30 @@ def phase_engine_ue(card: str) -> tuple:
         log(f"[jpeg] {_image_compression_against_pillow(card)}; "
             f"{_host_blur_against_float64(card)}; {_png_against_pillow(card)}; {card}")
         model_yml = "config_template/uniatt/Prot1/model_udeb4.yml"
+        init = os.path.join(root, "init_udeb4.bin")
+        net = build_model("UDEB4", model_spec("UDEB4")["model"])
+        net.load_state_dict(weights, strict=True)
+        save_torch_checkpoint(net, init)
+        del net
         first, resumed = _engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}",
-                                         model_yml=model_yml, log_steps=3, val_steps=3, **tree)
+                                         model_yml=model_yml, config_keys={"init_weights": init},
+                                         log_steps=3, val_steps=3, **tree)
         with open(os.path.join(root, "data_6.yml")) as f:
             distorted = dict(yaml.safe_load(f), distorted=True)
         with open(os.path.join(root, "data_distorted.yml"), "w") as f:
             yaml.safe_dump(distorted, f)
-        HostPipeline.apply = timed_apply
+        HostPipeline.apply, UniAttackEngine._build_training = timed_apply, checked_build
         try:
             runs.run(root, first, resumed,
                      test_argv=("--ds_config", os.path.join(root, "data_distorted.yml")))
         finally:
-            HostPipeline.apply = apply
+            HostPipeline.apply, UniAttackEngine._build_training = apply, build
         losses, aucs, scored = runs.check(root, n_iters=3, eval_lines=12)
+        with open(os.path.join(root, runs.runs[0][0].run_dir, "records.txt")) as f:
+            logged = f"Initialized full model weights from {init}." in f.read()
+        if not (built and not built[0] and logged):
+            raise AssertionError(f"[engine-ue] init_weights: logged {logged}, tensors off the "
+                                 f"file after the build {built[0][:3] if built else None}")
         # its CPU side scores UDEB4 fp32 at 380^2 (1.4 s a frame on the card
         # machine's cores): 20 frames, one method of each label, one frame a
         # video but val-real's two
@@ -2118,7 +2511,8 @@ def phase_engine_ue(card: str) -> tuple:
             yaml.safe_dump(dict(distorted, val_fake_method=["FFpp-DF"],
                                 test_method=["FFpp-Real", "FFpp-DF"], val_fake_fpv=1,
                                 test_real_fpv=1, test_fake_fpv=1), f)
-        parity = _ue_eval_against_cpu(root, first, os.path.join(root, "data_parity.yml"), card)
+        parity = _ue_eval_against_cpu(root, first, os.path.join(root, "data_parity.yml"), weights,
+                                      card)
         if not (sum("[Frame], ACER" in ln for ln in scored) == 4
                 and sum(ln.startswith("Test Step") for ln in scored) == 8):
             raise AssertionError(f"[engine-ue] Eval Step / Test Step lines {scored}")
@@ -2156,8 +2550,9 @@ def phase_engine_ue(card: str) -> tuple:
         log(f"[engine-ue] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
             f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
             f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
-            f"{losses}; AUC {aucs}; ckpt/best and ckpt/latest written; resumed from step 6 to 9; "
-            f"{card}")
+            f"{losses}; AUC {aucs}; init_weights {os.path.basename(init)} (the seeded weights, "
+            f"reference format) loaded, the model equal to it after the build; ckpt/best and "
+            f"ckpt/latest written; resumed from step 6 to 9; {card}")
         log(f"[engine-ue] {parity}; {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2210,8 +2605,10 @@ def main() -> int:
     if args.quick:
         log("[quick] kernels built and checked; no timing, serving or parity")
         return 0
-    weights = seeded_weights(card)
-    phase_serve(card, weights)  # asserts its own K1, K2 and K3 launch counts
+    weights = udeb4 = seeded_weights(card)
+    phase_ckpt(card, weights, "UDEB4")
+    served = phase_serve(card, weights)  # asserts its own K1, K2 and K3 launch counts
+    phase_serve_int8(card, weights, served)
     phase_parity(card, weights)
     trained = {"train": phase_train(card, weights)}
     phase_serve(card, weights, "UDEB4", V4_WIDTHS[380], "serve-v4")
@@ -2219,21 +2616,23 @@ def main() -> int:
     _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, "UDEB4", V4_WIDTHS[380],
                                                         "train-v4")
     phase_train_parity(card, weights)  # [train-parity] and [train-parity-v4]
-    trained["engine-fe"] = phase_engine_fe(card)
+    trained["engine-fe"] = phase_engine_fe(card, udeb4)
+    udr = {}
     for model in ("UDR18", "UDR50"):
         tag = model.lower()
-        weights = seeded_weights(card, model)
+        weights = udr[model] = seeded_weights(card, model)
+        phase_ckpt(card, weights, model)
         phase_serve(card, weights, model, tag=f"serve-{tag}")
         phase_parity(card, weights, model, tag=f"parity-{tag}")
         trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
-    trained["engine-ocim"] = phase_engine_ocim(card)
-    trained["engine-ue"] = phase_engine_ue(card)
+    trained["engine-ocim"] = phase_engine_ocim(card, udr["UDR18"])
+    trained["engine-ue"] = phase_engine_ue(card, udeb4)
     phase_corrupt(card)
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
-    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the FE and OCIM
-    # engines' three runs each (their steps and eval batches)
+    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the engines' runs
+    # (their steps and eval batches: FE's five, OCIM's and UE's three)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))
     by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}

@@ -423,12 +423,17 @@ def test_unported_transforms_raise(name):
 
 @pytest.mark.parametrize("name", ["CDF", "WDF", "UniAttack"])
 def test_unported_datasets_raise(name, ffpp, tmp_path):
-    """Celeb-DF and WildDeepfake raise an error naming ROADMAP.md queue 3;
-    UniAttack is ported: built from an FF++ index and FrameStore as the JAX
-    package builds it."""
+    """Each dataset that raised before it was ported now builds as the JAX
+    package builds it: Celeb-DF and WildDeepfake (their splits, index and
+    loading: tests/test_torch_serving.py) refuse the split they lack as
+    the JAX classes do; UniAttack is built from an FF++ index and
+    FrameStore."""
     if name != "UniAttack":
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            tds.get_dataset(name)({}, "train")
+        cfg = {"root": str(tmp_path), "method": []}
+        assert tds.get_dataset(name).__name__ == jds.get_dataset(name).__name__
+        for ds in (tds.get_dataset(name), jds.get_dataset(name)):
+            with pytest.raises(ValueError, match="split"):
+                ds(dict(cfg), "val")
         return
     root = tmp_path / "FaceForensics++"
     (root / "pickle_files").mkdir(parents=True)

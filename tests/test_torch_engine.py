@@ -225,19 +225,31 @@ def test_profiler_option_writes_a_trace(fe_config, tmp_path):
 
 
 def test_weight_files_follow_jax(fe_config, tmp_path):
-    """extractor_weights that exist, and init_weights, raise (loading .pth
-    files is ROADMAP.md queue 6); missing init_weights is the JAX
-    package's FileNotFoundError."""
-    pth = tmp_path / "backbone.pth"
-    pth.write_bytes(b"")
+    """extractor_weights that exist load into the backbone, and init_weights
+    into the whole model after them (loading .pth files is ported; the JAX
+    comparison is tests/test_torch_weights.py); missing init_weights is the
+    JAX package's FileNotFoundError."""
+    from unidefense_torch.models.convert import export_state_dict, save_torch_checkpoint
+
+    source = _engine(fe_config, id="source").state.model
+    with torch.no_grad():
+        for t in source.state_dict().values():
+            if t.is_floating_point():
+                t.add_(0.5)
+    pth, full = tmp_path / "backbone.pth", tmp_path / "full.bin"
+    torch.save(export_state_dict(source, "resnet"), pth)
+    save_torch_checkpoint(source, str(full))
     cfg = copy.deepcopy(fe_config)
     cfg["model"]["extractor_weights"] = str(pth)
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        _engine(cfg, id="weights")
+    got = _engine(cfg, id="weights").state.model.state_dict()
+    for k, v in source.state_dict().items():
+        assert torch.equal(got[k], v) == k.startswith("extractor.") or \
+            k.endswith("num_batches_tracked"), k
     with pytest.raises(FileNotFoundError):
         _engine(fe_config, id="init-missing", init_weights=str(tmp_path / "none.pth"))
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        _engine(fe_config, id="init", init_weights=str(pth))
+    got = _engine(fe_config, id="init", init_weights=str(full)).state.model.state_dict()
+    for k, v in source.state_dict().items():
+        assert torch.equal(got[k], v), k
 
 
 def _spread_bottleneck(engine, v, load_kwargs=None):
@@ -336,7 +348,7 @@ def test_cli_refuses_what_is_not_ported(fe_config, tmp_path, monkeypatch):
     cfg_path = tmp_path / "model.yml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump({k: v for k, v in fe_config.items() if k != "cfg_path"}, f)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         tmain.main(["--config", str(cfg_path), "--engine", "FE", "--num_devices", "2"])
     asked = []
     monkeypatch.setattr(tmain, "get_engine", lambda name: asked.append(name) or get_engine(name))

@@ -76,7 +76,7 @@ def arg_parser(argv=None) -> argparse.Namespace:
     parser.add_argument("--test", action="store_true",
                         help="Activate test mode (otherwise: training mode).")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Number of GPUs; the port runs on one (ROADMAP.md queue 4).")
+                        help="Number of GPUs; the port runs on one (ROADMAP.md: parallelism).")
     return parser.parse_args(argv)
 
 
@@ -85,8 +85,9 @@ def deep_copy_cfg(cfg: dict) -> dict:
 
 
 def check_num_devices(num_devices) -> None:
-    """The port trains and tests on one card; more is ROADMAP.md queue 4."""
+    """The port trains, tests and serves on one card; more waits for
+    ROADMAP.md's parallelism item."""
     if num_devices is not None and int(num_devices) > 1:
         raise NotImplementedError(
             f"num_devices={num_devices}: unidefense_torch runs on one GPU; data parallelism "
-            "is ROADMAP.md queue 4 (parallelism)")
+            "waits for ROADMAP.md's item 'parallelism'")

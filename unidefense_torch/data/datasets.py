@@ -9,22 +9,30 @@ exposes:
 * load_item(items, labels, margin, crop) -> {'images': uint8 NHWC numpy,
   'path': [...]}: decode + face-crop + resize on the host, in one call of
   the host JPEG library per batch (data/native.py); normalisation and flip
-  run later on the card (data/transforms.DevicePipeline, K1).
+  run later on the card (data/transforms.DevicePipeline, K1). It is
+  ``finish_item(plan_item(...))``: ``plan_item`` makes every random draw of
+  the batch (the margin, the host stage's draws), so a caller that loads
+  batches on worker threads plans them on its own thread in batch order and
+  hands only ``finish_item`` (blob reads, decode, the corruptions) to the
+  pool.
 
-Ported: FF++ (``FFpp``), OCIM (``OCIM``: Oulu-NPU, CASIA-FASD, Idiap
-Replay-Attack and MSU-MFSD, face crops from 5-point boxes) and UniAttack
-(``UniAttack``: FF++, Celeb-DF, Seq-DeepFake, HQ-WMCA, Oulu-NPU and
-SiW-Mv2, one blob store each, frames of several sizes in one batch).
-Celeb-DF and WildDeepfake as datasets of their own raise an error naming
-ROADMAP.md queue 3, and so does a frame that is not a JPEG (the host
-library decodes JPEG only). Blob storage: files under ``root``, a
-FrameStore (.udb) or LMDB (data/store.open_blob_source).
+Ported: FF++ (``FFpp``), Celeb-DF v2 (``CDF``), WildDeepfake (``WDF``),
+OCIM (``OCIM``: Oulu-NPU, CASIA-FASD, Idiap Replay-Attack and MSU-MFSD,
+face crops from 5-point boxes) and UniAttack (``UniAttack``: FF++,
+Celeb-DF, Seq-DeepFake, HQ-WMCA, Oulu-NPU and SiW-Mv2, one blob store each,
+frames of several sizes in one batch). Frames are JPEG or PNG (Celeb-DF's
+are PNG); the host library decodes both and refuses any other format.
+Blob storage: files under ``root``, a FrameStore (.udb) or LMDB
+(data/store.open_blob_source).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
+import os
 import pickle
+from glob import glob
 from os.path import join
 
 import numpy as np
@@ -149,39 +157,57 @@ class AbstractDataset:
             return (-1, -1, -1, -1)
         raise ValueError(f"Unsupported crop version '{crop}'")
 
-    def _host_stage(self, blobs: list, boxes: np.ndarray) -> np.ndarray:
-        """Decode, crop and resize a batch in one call of the host JPEG
-        library, then the host stage's corruptions. A stage that draws
-        makes every draw first, frame by frame in item order as the JAX
-        stage does (the RandomResizedCrop box, then the OneOf, then
-        ImageCompression). The RandomResizedCrop box needs the frame's
-        size: it is read from the header, the face box clamped to the frame
-        as the JAX package's ``_crop`` slices it (the whole frame for
-        x2 <= x1), and the library is handed the composed box."""
+    def _plan(self, paths: list, boxes: np.ndarray, read, **out) -> dict:
+        """The host stage's draws for a batch, made here on the calling
+        thread, frame by frame in item order as the JAX stage makes them
+        (the RandomResizedCrop box, then the OneOf, then ImageCompression).
+        The RandomResizedCrop box needs the frame's size: the blobs are
+        read here and their headers give it, the face box clamped to the
+        frame as the JAX package's ``_crop`` slices it (the whole frame for
+        x2 <= x1), and the library is later handed the composed box.
+        ``read`` maps a path to its blob; ``out`` rides along to the
+        result of :meth:`finish_item`."""
         host = self.host_tf
-        if host.is_plain_resize:
-            return decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
-        dims = jpeg_dims(blobs) if host.rrc_scale is not None else None
-        boxes, draws = boxes.copy(), []
-        for i, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
-            if dims is None:
-                draws.append(host.draw())
-                continue
-            h, w = dims[i].tolist()
-            if x2 <= x1:
-                x1, y1, x2, y2 = 0, 0, w, h
-            else:
-                x1, y1, x2, y2 = max(0, x1), max(0, y1), min(w, x2), min(h, y2)
-            draw = host.draw(y2 - y1, x2 - x1)
-            bx1, by1, bx2, by2 = draw[0]
-            boxes[i] = (x1 + bx1, y1 + by1, x1 + bx2, y1 + by2)
-            draws.append(draw)
-        images = decode_batch(blobs, boxes, host.height, host.width, interp=host.interpolation)
-        return host.apply(images, draws)
+        blobs, draws = None, None
+        if not host.is_plain_resize:
+            if host.rrc_scale is not None:
+                blobs = [read(p) for p in paths]
+                dims = jpeg_dims(blobs)
+            boxes, draws = boxes.copy(), []
+            for i, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
+                if blobs is None:
+                    draws.append(host.draw())
+                    continue
+                h, w = dims[i].tolist()
+                if x2 <= x1:
+                    x1, y1, x2, y2 = 0, 0, w, h
+                else:
+                    x1, y1, x2, y2 = max(0, x1), max(0, y1), min(w, x2), min(h, y2)
+                draw = host.draw(y2 - y1, x2 - x1)
+                bx1, by1, bx2, by2 = draw[0]
+                boxes[i] = (x1 + bx1, y1 + by1, x1 + bx2, y1 + by2)
+                draws.append(draw)
+        return dict(out, path=paths, _read=read, _blobs=blobs, _boxes=boxes, _draws=draws)
 
-    def load_item(self, items, labels, margin=None, crop="4p"):
-        """Decode + crop + resize a batch on the host: one call of the host
-        JPEG library for the whole batch (:meth:`_host_stage`)."""
+    def finish_item(self, plan: dict) -> dict:
+        """A planned batch (:meth:`plan_item`) decoded, cropped and resized
+        in one call of the host JPEG library, then the host stage's
+        corruptions; draws nothing, so worker threads may run it in any
+        order."""
+        host = self.host_tf
+        out = {k: v for k, v in plan.items() if not k.startswith("_")}
+        blobs = plan["_blobs"]
+        if blobs is None:
+            blobs = [plan["_read"](p) for p in plan["path"]]
+        images = decode_batch(blobs, plan["_boxes"], host.height, host.width,
+                              interp=host.interpolation)
+        if plan["_draws"] is not None:
+            images = host.apply(images, plan["_draws"])
+        return dict(out, images=images)
+
+    def plan_item(self, items, labels, margin=None, crop="4p") -> dict:
+        """Every draw of :meth:`load_item`: the batch's margin, then the
+        host stage's (:meth:`_plan`)."""
         paths, contents_list = [], []
         for item in items:
             contents = str(item).split(" ")
@@ -190,9 +216,14 @@ class AbstractDataset:
 
         if crop == "4p":
             margin = self._resolve_margin(margin)  # one draw per batch
-        blobs = [self._read_blob(p) for p in paths]
         boxes = np.asarray([self._box_for(c, margin, crop) for c in contents_list], np.int32)
-        return {"images": self._host_stage(blobs, boxes), "path": paths}
+        return self._plan(paths, boxes, self._read_blob)
+
+    def load_item(self, items, labels, *args, **kwargs):
+        """Decode + crop + resize a batch on the host: one call of the host
+        JPEG library for the whole batch. Takes :meth:`plan_item`'s
+        arguments."""
+        return self.finish_item(self.plan_item(items, labels, *args, **kwargs))
 
 
 class FaceForensics(AbstractDataset):
@@ -225,6 +256,75 @@ class FaceForensics(AbstractDataset):
             indices = self._resample(indices, fpv)
         self.images = indices
         self.targets = [0 if "original_sequences" in p else 1 for p in indices]
+
+
+class CelebDF(AbstractDataset):
+    """Celeb-DF v2 (unidefense_tpu/data/datasets.py:228-263; the reference's
+    dataset/celeb_df.py): the test videos are those List_of_testing_videos.txt
+    names, training takes the rest; the frames are the PNG files under
+    ``<method>/images/<video>/``; label 0 iff "real" is in the path.
+
+    The JAX class builds its index from sets and unsorted globs, so its
+    order, and with ``<split>_fpv`` its pick, follows the hash seed and the
+    directory listing. Here videos and frames are sorted, so the index and
+    the pick are repeatable from the seed. ``root`` is made absolute: the
+    items are root-joined paths, read as they are."""
+
+    METHOD = ["YouTube-real", "Celeb-real", "Celeb-synthesis"]
+    SPLITS = ["train", "test"]
+
+    def __init__(self, cfg: dict, split: str, seed: int = 2022):
+        if split not in self.SPLITS:
+            raise ValueError(f"split must be one of {self.SPLITS}")
+        cfg = dict(cfg, root=os.path.abspath(cfg["root"]))
+        super().__init__(cfg, split, seed)
+        self.categories = ["original", "fake"]
+        self.fpv = cfg.get(f"{split}_fpv")
+        test_ids = {m: set() for m in self.METHOD}
+        with open(join(self.root, "List_of_testing_videos.txt"), encoding="utf-8") as f:
+            for line in f:
+                name = line.split(" ")[-1]
+                number = name.split("/")[-1].split(".")[0]
+                for m in self.METHOD:
+                    if m in name:
+                        test_ids[m].add(number)
+        images = []
+        for m in cfg["method"]:
+            videos = set(os.listdir(join(self.root, m, "images")))
+            videos = test_ids[m] if split == "test" else videos - test_ids[m]
+            for vid in sorted(videos):
+                images.extend(sorted(glob(join(self.root, m, "images", vid, "*.png"))))
+        if self.fpv is not None:
+            images = self._resample(images, self.fpv)
+        self.images = images
+        self.targets = [0 if "real" in p else 1 for p in images]
+
+
+class WildDeepfake(AbstractDataset):
+    """WildDeepfake (unidefense_tpu/data/datasets.py:266-283; the reference's
+    dataset/wild_deepfake.py): a ``<split>/<method>.pickle`` index of
+    split-relative frame paths per method; ``__getitem__`` returns them
+    joined to ``root/split`` (``root`` made absolute, as in
+    :class:`CelebDF`)."""
+
+    SPLITS = ["train", "test"]
+
+    def __init__(self, cfg: dict, split: str, seed: int = 2022):
+        if split not in self.SPLITS:
+            raise ValueError(f"split must be one of {self.SPLITS}")
+        cfg = dict(cfg, root=os.path.abspath(cfg["root"]))
+        super().__init__(cfg, split, seed)
+        self.categories = ["original", "fake"]
+        fpv = cfg.get(f"{split}_fpv")
+        for m in cfg["method"]:
+            imgs = _load_index(join(self.root, split, f"{m}.pickle"))
+            if fpv is not None:
+                imgs = self._resample(imgs, fpv)
+            self.images.extend(imgs)
+            self.targets.extend([0 if m == "real" else 1] * len(imgs))
+
+    def __getitem__(self, index):
+        return join(self.root, self.split, self.images[index]), self.targets[index]
 
 
 class OCIMSubDataset(AbstractDataset):
@@ -371,12 +471,12 @@ class UniAttack(AbstractDataset):
             raise KeyError(f"Blob missing for key {key}")
         return buf
 
-    def load_item(self, items, labels, margin=None, crop="nocrop", dataset_label_map=None):
-        """Decode + crop + resize a batch of mixed sources in one call of the
-        host JPEG library (:meth:`_host_stage`). FF++ and Celeb-DF frames are
-        stored cropped and are never cropped again; a margin is drawn once
-        per batch only if some item is cropped 4p. ``dataset_labels`` are
-        the items' domain ids (int64) under ``dataset_label_map``, else
+    def plan_item(self, items, labels, margin=None, crop="nocrop", dataset_label_map=None):
+        """The draws of a batch of mixed sources (:meth:`_plan`), decoded
+        later in one call of the host JPEG library. FF++ and Celeb-DF frames
+        are stored cropped and are never cropped again; a margin is drawn
+        once per batch only if some item is cropped 4p. ``dataset_labels``
+        are the items' domain ids (int64) under ``dataset_label_map``, else
         None."""
         paths, contents_list, dlabels, eff_crops = [], [], [], []
         for item in items:
@@ -390,11 +490,10 @@ class UniAttack(AbstractDataset):
 
         if any(ec == "4p" for ec in eff_crops):
             margin = self._resolve_margin(margin)  # one draw per batch
-        blobs = [self._read_blob_ua(p, crop) for p in paths]
         boxes = np.asarray([self._box_for(c, margin, ec)
                             for c, ec in zip(contents_list, eff_crops)], np.int32)
-        return {"images": self._host_stage(blobs, boxes), "path": paths,
-                "dataset_labels": np.asarray(dlabels, np.int64) if dlabels else None}
+        return self._plan(paths, boxes, functools.partial(self._read_blob_ua, crop=crop),
+                          dataset_labels=np.asarray(dlabels, np.int64) if dlabels else None)
 
     # --- per-subset index loaders (dataset/uniattack.py:296-420) ---
 
@@ -450,17 +549,10 @@ class UniAttack(AbstractDataset):
         return self._finish(list(idx), method)
 
 
-def _not_ported(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"Dataset '{name}' is not ported to unidefense_torch yet "
-                                  "(ROADMAP.md queue 3)")
-    return refuse
-
-
 LOADERS = {
     "FFpp": FaceForensics,
-    "CDF": _not_ported("CDF"),
-    "WDF": _not_ported("WDF"),
+    "CDF": CelebDF,
+    "WDF": WildDeepfake,
     "OCIM": OCIMDataset,
     "UniAttack": UniAttack,
 }

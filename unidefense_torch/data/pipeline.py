@@ -25,7 +25,7 @@ import torch
 class EpochSampler:
     """Shuffled, sharded, batched index stream with set_epoch re-seeding
     (DistributedSampler parity; engine/forgery_engine.py:243-248). Shards
-    are processes: the port runs one (ROADMAP.md queue 4)."""
+    are processes: the port runs one (ROADMAP.md: parallelism)."""
 
     def __init__(
         self,

@@ -14,7 +14,7 @@ in UE), and eval batch ``b`` from (seed, 777, b); so
 a resumed run draws what an uninterrupted one would, with no generator
 state saved.
 
-Not ported (ROADMAP.md queue 4): the mesh, multi-host runs and
+Not ported (ROADMAP.md: parallelism): the mesh, multi-host runs and
 ``split_device_batch``; ``n_dev`` is 1.
 """
 
@@ -31,6 +31,7 @@ import torch
 from unidefense_torch.checkpoint import CheckpointManager
 from unidefense_torch.config import check_num_devices
 from unidefense_torch.device import DeviceLike, nhwc, resolve_device
+from unidefense_torch.models.convert import load_pretrained_extractor, load_unidefense_checkpoint
 from unidefense_torch.models.registry import build_model
 from unidefense_torch.train.optim import build_optimizer, build_plateau
 from unidefense_torch.train.step import create_train_state, make_eval_step, make_train_step
@@ -220,28 +221,29 @@ class AbstractEngine:
         # direction of plateau_default_mode unless the YAML says otherwise
         self.plateau = build_plateau(self.config_cfg, default_mode=self.plateau_default_mode)
 
-        # the reference's pretrained backbone (config_template/forgery/
-        # model_udeb4.yml:2) and full-model warm start: loading .pth files is
-        # ROADMAP.md queue 6
+        self.state = create_train_state(model, self.tx, self.device)
+        if self.plateau is not None:
+            self.state.lr_scale = self.plateau.scale
+
+        # the reference's pretrained backbone ('extractor_weights',
+        # config_template/forgery/model_udeb4.yml:2), then a full-model warm
+        # start ('init_weights', a reference {'model': state_dict} file),
+        # which supersedes it; a later resume supersedes both
+        # (unidefense_tpu/engines/base.py:251-284)
         weights_path = self.model_cfg.get("extractor_weights")
         if weights_path and os.path.exists(weights_path):
-            raise NotImplementedError(
-                f"extractor_weights '{weights_path}': loading reference .pth weights is not "
-                "ported to unidefense_torch yet (ROADMAP.md queue 6)")
-        if weights_path:
+            load_pretrained_extractor(self.state.model, weights_path, self.model_name)
+            self._mprint(f"Loaded pretrained extractor weights from {weights_path}.")
+        elif weights_path:
             self._mprint(f"WARNING: extractor_weights '{weights_path}' not found; "
                          "training from scratch.")
         init_path = self.config_cfg.get("init_weights")
         if init_path:
             if not os.path.exists(init_path):
                 raise FileNotFoundError(f"config.init_weights '{init_path}' does not exist")
-            raise NotImplementedError(
-                f"init_weights '{init_path}': loading reference checkpoints is not ported to "
-                "unidefense_torch yet (ROADMAP.md queue 6)")
+            load_unidefense_checkpoint(self.state.model, init_path)
+            self._mprint(f"Initialized full model weights from {init_path}.")
 
-        self.state = create_train_state(model, self.tx, self.device)
-        if self.plateau is not None:
-            self.state.lr_scale = self.plateau.scale
         self.eval_step = make_eval_step(self.state.model,
                                         preprocess=device_tf if eval_tf is None else eval_tf)
         if train:
@@ -467,18 +469,20 @@ class AbstractEngine:
         num_batches = -(-n // batch_size)
 
         def _select(b):
+            """Batch b's items and every draw of its load, on this thread
+            in batch order (``plan_item``), so a stage that draws (the
+            distorted test's OneOf) draws as a serial run would."""
             idx = list(range(b * batch_size, min(n, (b + 1) * batch_size)))
             n_valid = len(idx)
             while len(idx) < batch_size:
                 idx.append(idx[-1])
             items = [dataset[i][0] for i in idx]
             labels = np.asarray([int(dataset[i][1]) for i in idx], np.int64)
-            return items, labels, n_valid
+            return dataset.plan_item(items, labels, **load_kwargs), labels, n_valid
 
         def _load(sel):
-            items, labels, n_valid = sel
-            out = dataset.load_item(items, labels, **load_kwargs)
-            return out, labels, n_valid
+            plan, labels, n_valid = sel
+            return dataset.finish_item(plan), labels, n_valid
 
         # decode batches b+1..b+lookahead on worker threads while the card
         # scores batch b

@@ -120,3 +120,106 @@ def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     if "bottleneck.weight" in sd and "bottleneck.bias" not in sd:
         sd["bottleneck.bias"] = torch.zeros_like(sd["bottleneck.weight"])
     return sd
+
+
+# ------------------------------------------------- the reference's files
+# (unidefense_tpu/models/convert.py:206-318). The port's modules carry the
+# reference's torch key names and layouts, so reading and writing these
+# files is key selection plus load_state_dict / state_dict.
+
+# the SFConv-only tensors, which the published backbones lack and which keep
+# their initialisation (_SF_ONLY, unidefense_tpu/models/convert.py:23)
+SF_ONLY = ("freq_conv", "sf_coef")
+# each model's backbone sub-module: the prefix of its keys, the arch of the
+# published file, and the classifier head that file carries and the model
+# does not build
+_BACKBONE = {"UDEB4": ("backbone.", "efficientnet", "_fc."),
+             "UDR18": ("extractor.", "resnet", "fc."),
+             "UDR50": ("extractor.", "resnet", "fc.")}
+_ARCH_PREFIX = {"efficientnet": "backbone.", "resnet": "extractor.", "unidefense": ""}
+
+
+def _load_file(path: str):
+    """``torch.load`` of a reference file on the CPU. The files are pickles
+    that may hold more than tensors (the step, best metrics, a whole module),
+    so this unpickles with ``weights_only=False``, as the JAX package does:
+    open only files you trust."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _load_matching(model: torch.nn.Module, state_dict: dict, prefix: str = "") -> list:
+    """Load the tensors of ``state_dict`` whose ``prefix + key`` the model
+    has; every other key of the file is ignored and every tensor the file
+    lacks keeps its value (the JAX loader's ``strict=False``). A shape that
+    differs raises, except a (1,) tensor into a 0-d one (``sf_coef``,
+    ``fuse_coef``), which torch's ``_load_from_state_dict`` loads by its
+    legacy rule, as the JAX loader does. Returns the keys of the model that
+    the file did not give, SFConv-only ones aside."""
+    own = model.state_dict()
+    picked = {prefix + k: torch.as_tensor(v) for k, v in state_dict.items() if prefix + k in own}
+    model.load_state_dict(picked, strict=False)
+    return [k for k in own if k.startswith(prefix) and k not in picked
+            and not k.endswith("num_batches_tracked") and not any(s in k for s in SF_ONLY)]
+
+
+def load_unidefense_checkpoint(model: torch.nn.Module, path: str) -> list:
+    """Load a whole reference UniDefense checkpoint into ``model`` (UDEB4,
+    UDR18 or UDR50) in place: the ``{'model': state_dict, 'step', 'best_*'}``
+    files of the reference's ``_save_ckpt`` and of
+    :func:`save_torch_checkpoint`, or a bare ``state_dict``
+    (unidefense_tpu/models/convert.py:206-216). Non-strict, as there; see
+    :func:`_load_matching`. Returns the model's keys the file lacked."""
+    sd = _load_file(path)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    return _load_matching(model, sd)
+
+
+def load_pretrained_extractor(model: torch.nn.Module, path: str, model_name: str) -> list:
+    """Load a published backbone (``extractor_weights``) into ``model``'s
+    backbone in place (unidefense_tpu/models/convert.py:219-254): lukemelas
+    EfficientNet naming (``_conv_stem``, ``_blocks.N._depthwise_conv``, ...)
+    into UDEB4's ``backbone.``, torchvision/timm ResNet naming (``conv1``,
+    ``layerL.B.convK``, ``downsample.0/1``) into UDR18's and UDR50's
+    ``extractor.``. The file's classifier (``_fc.``, ``fc.``) is dropped;
+    the extractors build the stem and layers 1-3, so ``layer4.`` goes
+    unused; the SFConv-only tensors, which such files lack, keep their
+    init. A pickled module is read through its ``state_dict()``. Returns
+    the backbone's keys the file lacked, SFConv-only ones aside."""
+    sd = _load_file(path)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    prefix, _, head = _BACKBONE[model_name.upper()]
+    return _load_matching(model, {k: v for k, v in sd.items() if not k.startswith(head)}, prefix)
+
+
+def export_state_dict(model: torch.nn.Module, arch: str = "unidefense") -> dict:
+    """``model``'s weights as the reference's torch ``state_dict``, on the
+    CPU (unidefense_tpu/models/convert.py:276-304): arch ``unidefense`` is
+    the whole model, ``efficientnet`` and ``resnet`` its backbone with the
+    ``backbone.`` / ``extractor.`` prefix stripped (the SFConv-only tensors
+    included). The floats are the model's, bit for bit, the bottleneck's
+    frozen zero bias among them; each BatchNorm's ``num_batches_tracked`` is
+    the model's own count (the JAX package, which counts no batches, writes
+    zeros there)."""
+    prefix = _ARCH_PREFIX[arch]
+    return {k[len(prefix):]: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.startswith(prefix)}
+
+
+def write_checkpoint(state_dict: dict, path: str, step: int = 0,
+                     extra_meta: dict | None = None) -> None:
+    """``torch.save({'model': state_dict, 'step': step, **extra_meta})``:
+    the reference's checkpoint format (engine/forgery_engine.py:215-223),
+    which :func:`load_unidefense_checkpoint` and the reference's test path
+    read (unidefense_tpu/models/convert.py:307-318)."""
+    payload = {"model": state_dict, "step": step}
+    payload.update(extra_meta or {})
+    torch.save(payload, path)
+
+
+def save_torch_checkpoint(model: torch.nn.Module, path: str, arch: str = "unidefense",
+                          step: int = 0, extra_meta: dict | None = None) -> None:
+    """:func:`export_state_dict` of ``model`` written as the reference's
+    checkpoint (:func:`write_checkpoint`)."""
+    write_checkpoint(export_state_dict(model, arch), path, step, extra_meta)

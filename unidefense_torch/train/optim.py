@@ -18,7 +18,7 @@ plain tensor ops (``torch._foreach_*`` over every trained tensor at once):
   both updates of a step use the same lr.
 
 The other optimizers of the JAX registry (sgd, adamax, adadelta, adagrad,
-rmsprop, asgd) are not ported yet (ROADMAP.md queue 3).
+rmsprop, asgd) are not ported yet (ROADMAP.md: the other optimizers).
 """
 
 from __future__ import annotations
@@ -186,7 +186,7 @@ def get_optimizer(name: str, schedule: Callable[[int], float], weight_decay: flo
                     eps=eps, amsgrad=amsgrad)
     if name in _NOT_PORTED:
         raise KeyError(f"Optimizer '{name}' is not ported to unidefense_torch yet "
-                       "(ROADMAP.md queue 3)")
+                       "(ROADMAP.md: the other optimizers)")
     raise KeyError(f"Optimizer '{name}' not implemented")
 
 
