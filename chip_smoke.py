@@ -60,8 +60,18 @@ naming loaded by ``load_pretrained_extractor``), ``[serve-int8]`` (UDEB4
 engines: FE's ``extractor_weights`` (lukemelas EfficientNet-b4), the export
 of its run served alike by ``from_run`` and ``from_torch_checkpoint``, and
 its ``--test`` on Celeb-DF and WildDeepfake trees; OCIM's
-``extractor_weights`` (torchvision ResNet-18); UE's ``init_weights``. Any
-failure raises, so the exit code is not 0 and no result line is printed.
+``extractor_weights`` (torchvision ResNet-18); UE's ``init_weights``. Data
+parallelism, two ranks sharing cuda:0 over a gloo group of their own (NCCL
+refuses two ranks on one device; these times measure no speed):
+``[dp-step]`` (UDR18 256^2 b30+30 per rank fp32: the step of two ranks on
+the same batch against the one-process step, then 3 steps on two halves
+with the ranks' states equal bitwise) and ``[engine-fe-dp]`` ([engine-fe]'s
+FE engine on two ranks, 4 steps: striped validation against one process,
+rank 0's checkpoints, the resume on one card bitwise); ``[dp-nccl]`` (the
+CLI's ``--num_devices 2`` over NCCL) and ``[serve-dp]``
+(``Predictor(num_devices=2)``) where the host has two cards, else a line
+that says they did not run. Any failure raises, so the exit code is not 0
+and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -69,11 +79,14 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -1397,13 +1410,14 @@ def _decoder_against_pillow(blob: bytes, size: int) -> str:
 
 
 def _engine_configs(out_dir: str, model_name: str, run_id: str, model_yml: str = None,
-                    model_keys: dict = None, config_keys: dict = None,
+                    model_keys: dict = None, config_keys: dict = None, steps=(6, 9),
                     **data) -> tuple[str, str]:
     """``model_name``'s YAML (or ``model_yml``) with the keys of
     ``model_keys`` and ``config_keys`` set in its ``model:`` and ``config:``
     sections, and the data YAML it names, with the keys of ``data`` set (the
-    tree's root, the cadence), 6 steps and a fresh id, written into
-    ``out_dir``; and the same with resume on and 9 steps."""
+    tree's root, the cadence), ``steps[0]`` steps (6) and a fresh id,
+    written into ``out_dir``; and the same with resume on and ``steps[1]``
+    steps (9)."""
     import yaml
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1414,14 +1428,14 @@ def _engine_configs(out_dir: str, model_name: str, run_id: str, model_yml: str =
     with open(os.path.join(repo, model["data"]["file"])) as f:
         data_yml = yaml.safe_load(f)
     paths = []
-    for steps, resume in ((6, False), (9, True)):
-        data_yml.update(data, num_steps=steps)
-        data_path = os.path.join(out_dir, f"data_{steps}.yml")
+    for num_steps, resume in zip(steps, (False, True)):
+        data_yml.update(data, num_steps=num_steps)
+        data_path = os.path.join(out_dir, f"data_{num_steps}.yml")
         with open(data_path, "w") as f:
             yaml.safe_dump(data_yml, f)
         model["data"]["file"] = data_path
         model["config"].update(id=run_id, resume=resume)
-        model_path = os.path.join(out_dir, f"model_{steps}.yml")
+        model_path = os.path.join(out_dir, f"model_{num_steps}.yml")
         with open(model_path, "w") as f:
             yaml.safe_dump(model, f)
         paths.append(model_path)
@@ -1695,12 +1709,13 @@ def _served_alike(run_dir: str, export: str, model: str, card: str) -> str:
             f"(in [{float(a.min()):.4f}, {float(a.max()):.4f}])")
 
 
-def phase_engine_fe(card: str, weights: dict) -> tuple:
+def phase_engine_fe(card: str, weights: dict, root: str) -> tuple:
     """``python -m unidefense_torch.main --engine FE`` in process: UDEB4 at
     380^2, b10+10, bf16, AdamW amsgrad, StepLR (model_udeb4.yml,
-    data_ffc23.yml) on a synthetic FF++ tree, its ``extractor_weights`` a
-    lukemelas-format EfficientNet-b4 file of the seeded backbone
-    (``weights``). Trains 6 steps (validation at 3 and 6), tests from the
+    data_ffc23.yml) on a synthetic FF++ tree written under ``root`` (kept for
+    ``[engine-fe-dp]``: ``root``/ffpp and the backbone file), its
+    ``extractor_weights`` a lukemelas-format EfficientNet-b4 file of the
+    seeded backbone (``weights``). Trains 6 steps (validation at 3 and 6), tests from the
     best checkpoint, resumes to step 9; exports ``ckpt/best`` and serves the
     export and the run alike (:func:`_served_alike`); then ``--test`` of the
     run on Celeb-DF (data_cdf.yml, PNG frames) and on WildDeepfake
@@ -1709,9 +1724,6 @@ def phase_engine_fe(card: str, weights: dict) -> tuple:
     of K1, K2 and K2-bwd (1, 96, 48) and every eval batch's (1, 24); each
     run's launch totals are read around its main() call. Returns the launch
     totals over the five runs."""
-    import shutil
-    import tempfile
-
     import torch
 
     from unidefense_torch.data.datasets import AbstractDataset
@@ -1721,65 +1733,549 @@ def phase_engine_fe(card: str, weights: dict) -> tuple:
     per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
     runs = EngineRuns("engine-fe", "FE", AbstractDataset, ForgeryEngine,
                       (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0))
-    root = tempfile.mkdtemp(prefix="ud_engine_fe_")
-    try:
-        tree = os.path.join(root, "ffpp")
-        _write_ffpp(tree, card)
-        t0 = time.perf_counter()
-        n_cdf = _write_cdf(os.path.join(root, "cdf"))
-        n_wdf = _write_wdf(os.path.join(root, "wdf"))
-        trees_s = time.perf_counter() - t0
-        cross = (_cross_dataset_yml(root, "cdf", os.path.join(root, "cdf")),
-                 _cross_dataset_yml(root, "wdf", os.path.join(root, "wdf")))
-        backbone = os.path.join(root, "adv-efficientnet-b4.pth")
-        torch.save(published_backbone(weights, "UDEB4"), backbone)
-        runs.run(root, *_engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}",
-                                        model_keys={"extractor_weights": backbone}, root=tree,
-                                        fake_method=["Deepfakes"], log_steps=3, val_steps=3),
-                 test_configs=cross)
-        losses, aucs, scored = runs.check(root, n_iters=3, eval_lines=6)
-        trained, again = runs.runs[0][0], runs.runs[2][0]
-        run_dir = os.path.join(root, trained.run_dir)
-        with open(os.path.join(run_dir, "records.txt")) as f:
-            if f"Loaded pretrained extractor weights from {backbone}." not in f.read():
-                raise AssertionError("[engine-fe] no 'Loaded pretrained extractor weights' line")
-        export = os.path.join(root, "export.bin")
-        export_checkpoint.main(["--run", run_dir, "--out", export, "--best"])
-        served = _served_alike(run_dir, export, "UDEB4", card)
-        bs = trained.data_cfg["train_batch_size"]
-        r = runs.rates(2 * bs)
-        train_loads = [s * 1e3 for n, s in runs.loads if n == bs]
-        val_ms = [s * 1e3 / b for b, s in runs.evals]
-        log(f"[engine-fe] python -m unidefense_torch.main --engine FE: UDEB4 380^2 b10+10 bf16 "
-            f"on {trained.device}, {trained.state.step} steps + test + resume to "
-            f"{again.state.step}: steps 2-6, each between two synchronises, data waits "
-            f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
-            f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
-            f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
-            f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
-            f"bare step; host decode p50 {statistics.median(train_loads):.2f} ms per {bs}-frame "
-            f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation and test "
-            f"{[round(v, 2) for v in val_ms[:4]]} ms per b64/b96 batch with its decode; peak "
-            f"memory {runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs[:3]]} s; "
-            f"{card}")
-        log(f"[engine-fe] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
-            f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
-            f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
-            f"{losses}; AUC {aucs}; extractor_weights {os.path.basename(backbone)} (lukemelas "
-            f"naming, its _fc unused) loaded; ckpt/best and ckpt/latest written; resumed from "
-            f"step 6 to 9; {served}; {card}")
-        # test.txt's reports in run order: FF++, then Celeb-DF and WildDeepfake
-        tests = [ln for ln in scored if ln.startswith("Test |")][-2:]
-        for (engine, seconds, _, _), (b, s), name, n, line in zip(
-                runs.runs[3:], runs.evals[-2:], ("Celeb-DF", "WildDeepfake"), (n_cdf, n_wdf),
-                tests):
-            log(f"[engine-fe] --test on {name} ({type(engine.test_set).__name__}, "
-                f"{len(engine.test_set)} test frames of {n} written, 320^2 -> 380^2, b96): "
-                f"{line}; {s * 1e3 / b:.2f} ms per b96 test batch with its decode over {b} "
-                f"batches; run {seconds:.2f} s; trees written in {trees_s:.2f} s; {card}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    tree = os.path.join(root, "ffpp")
+    _write_ffpp(tree, card)
+    t0 = time.perf_counter()
+    n_cdf = _write_cdf(os.path.join(root, "cdf"))
+    n_wdf = _write_wdf(os.path.join(root, "wdf"))
+    trees_s = time.perf_counter() - t0
+    cross = (_cross_dataset_yml(root, "cdf", os.path.join(root, "cdf")),
+             _cross_dataset_yml(root, "wdf", os.path.join(root, "wdf")))
+    backbone = os.path.join(root, "adv-efficientnet-b4.pth")
+    torch.save(published_backbone(weights, "UDEB4"), backbone)
+    runs.run(root, *_engine_configs(root, "UDEB4", f"chip-smoke-{os.getpid()}",
+                                    model_keys={"extractor_weights": backbone}, root=tree,
+                                    fake_method=["Deepfakes"], log_steps=3, val_steps=3),
+             test_configs=cross)
+    losses, aucs, scored = runs.check(root, n_iters=3, eval_lines=6)
+    trained, again = runs.runs[0][0], runs.runs[2][0]
+    run_dir = os.path.join(root, trained.run_dir)
+    with open(os.path.join(run_dir, "records.txt")) as f:
+        if f"Loaded pretrained extractor weights from {backbone}." not in f.read():
+            raise AssertionError("[engine-fe] no 'Loaded pretrained extractor weights' line")
+    export = os.path.join(root, "export.bin")
+    export_checkpoint.main(["--run", run_dir, "--out", export, "--best"])
+    served = _served_alike(run_dir, export, "UDEB4", card)
+    bs = trained.data_cfg["train_batch_size"]
+    r = runs.rates(2 * bs)
+    train_loads = [s * 1e3 for n, s in runs.loads if n == bs]
+    val_ms = [s * 1e3 / b for b, s in runs.evals]
+    log(f"[engine-fe] python -m unidefense_torch.main --engine FE: UDEB4 380^2 b10+10 bf16 "
+        f"on {trained.device}, {trained.state.step} steps + test + resume to "
+        f"{again.state.step}: steps 2-6, each between two synchronises, data waits "
+        f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
+        f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
+        f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
+        f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
+        f"bare step; host decode p50 {statistics.median(train_loads):.2f} ms per {bs}-frame "
+        f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation and test "
+        f"{[round(v, 2) for v in val_ms[:4]]} ms per b64/b96 batch with its decode; peak "
+        f"memory {runs.peak:.3f} GiB; runs {[round(x[1], 2) for x in runs.runs[:3]]} s; "
+        f"{card}")
+    log(f"[engine-fe] launches per train step K1 1 K2 {4 * per_k2} K2-bwd {2 * per_k2} and "
+        f"per eval batch K1 1 K2 {per_k2} over {len(runs.steps)} steps and "
+        f"{sum(b for b, _ in runs.evals)} eval batches (totals {runs.totals}); losses "
+        f"{losses}; AUC {aucs}; extractor_weights {os.path.basename(backbone)} (lukemelas "
+        f"naming, its _fc unused) loaded; ckpt/best and ckpt/latest written; resumed from "
+        f"step 6 to 9; {served}; {card}")
+    # test.txt's reports in run order: FF++, then Celeb-DF and WildDeepfake
+    tests = [ln for ln in scored if ln.startswith("Test |")][-2:]
+    for (engine, seconds, _, _), (b, s), name, n, line in zip(
+            runs.runs[3:], runs.evals[-2:], ("Celeb-DF", "WildDeepfake"), (n_cdf, n_wdf),
+            tests):
+        log(f"[engine-fe] --test on {name} ({type(engine.test_set).__name__}, "
+            f"{len(engine.test_set)} test frames of {n} written, 320^2 -> 380^2, b96): "
+            f"{line}; {s * 1e3 / b:.2f} ms per b96 test batch with its decode over {b} "
+            f"batches; run {seconds:.2f} s; trees written in {trees_s:.2f} s; {card}")
     return runs.totals
+
+
+# ------------------------------------------------------------ data parallelism
+# One card: NCCL refuses two ranks on one device, so [dp-step] and
+# [engine-fe-dp] start two ranks on cuda:0 that meet over gloo in a group of
+# their own (parallel.init_data_parallel takes an existing group). Gloo
+# carries all_reduce and broadcast of CUDA tensors, all the step, BatchNorm
+# and the state broadcast issue. Their times measure no speed.
+DP_WORLD = 2
+DP_TIMEOUT_S = 900
+
+
+def _gloo_rank(rank: int, port: int, fn, args: tuple) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_ranks_on_one_card(fn, *args) -> None:
+    """``fn(rank, *args)`` in two spawned processes on cuda:0, one gloo
+    group. A failing rank terminates the other and raises here; past
+    DP_TIMEOUT_S both are killed."""
+    import torch.multiprocessing as mp
+
+    from unidefense_torch.parallel.mesh import GRACE_SECONDS, free_port
+
+    ctx = mp.start_processes(_gloo_rank, args=(free_port(), fn, args), nprocs=DP_WORLD,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while not ctx.join(timeout=1.0, grace_period=GRACE_SECONDS):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+                p.join()
+            raise AssertionError(f"two ranks still running after {DP_TIMEOUT_S} s; killed")
+
+
+class _Collectives:
+    """Counts this process's all_reduce calls and the bytes they reduce,
+    while installed (``torch.distributed.all_reduce`` wrapped)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.calls = self.bytes = 0
+        self._dist, self._all_reduce = dist, dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            return self._all_reduce(tensor, *args, **kwargs)
+        dist.all_reduce = counted
+
+    def read(self) -> tuple:
+        out = (self.calls, self.bytes)
+        self.calls = self.bytes = 0
+        return out
+
+
+def _state_digest(model, opt_state=None) -> str:
+    """sha256 of the model's state_dict and the optimizer moments, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    tensors = list(model.state_dict().values())
+    if opt_state is not None:
+        tensors += [t for m in (opt_state.mu, opt_state.nu, opt_state.nu_max) for t in m.values()]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_state(weights: dict, zero_drop: bool, group=None):
+    """UDR18 at 256^2 fp32 from ``weights`` with model_udr18.yml's optimizer
+    (drop rates 0 with ``zero_drop``), its BatchNorms synced over ``group``,
+    and the two-pass step at 30 + 30 frames with ``group``."""
+    import torch
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.parallel import sync_batchnorm
+    from unidefense_torch.train.optim import build_optimizer
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    spec = model_spec("UDR18")
+    cfg = dict(spec["model"], drop_rate=0.0, feat_drop_rate=0.0) if zero_drop else spec["model"]
+    net = build_model("UDR18", cfg, dtype=torch.float32)
+    net.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(spec["config"])
+    state = create_train_state(net, tx, device="cuda:0")
+    sync_batchnorm(state.model, group)
+    step = make_train_step(tx, spec["config"], spec["num_steps"], 30, 30,
+                           preprocess=DevicePipeline(hflip_p=0.5), group=group)
+    return state, step
+
+
+def _on_card(batch: dict) -> dict:
+    return {k: v.to("cuda:0") for k, v in batch.items()}
+
+
+def _dp_step_rank(rank: int, tmp: str) -> None:
+    """[dp-step] on one rank: the exactness step (both ranks the same batch
+    and draws, drop rates 0), then 3 steps on this rank's half with its own
+    generator and the YAML's drop rates. Saves the state after the first,
+    and the launches, times, digests and peak memory."""
+    import torch
+
+    from unidefense_torch.parallel import init_data_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dp = init_data_parallel(device="cuda:0")
+    data = torch.load(os.path.join(tmp, "dp_step.pt"), weights_only=False)
+    state, step = _dp_state(data["weights"], True, dp.group)
+    _reset_counts()
+    step(state, _on_card(data["batch"]), None, data["draws"])
+    torch.cuda.synchronize()
+    exact_counts = _route_counts()
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               os.path.join(tmp, f"exact{rank}.pt"))
+    del state, step
+    state, step = _dp_state(data["weights"], False, dp.group)
+    batch = _on_card(data["halves"][rank])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    reduced = _Collectives()
+    for s in range(1, 4):
+        gen = torch.Generator(device="cuda:0").manual_seed(SEED + 40 + 100 * rank + s)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, counts=_route_counts(),
+                          all_reduce=reduced.read(),
+                          digest=_state_digest(state.model, state.opt_state),
+                          loss=float(metrics["total_loss"])))
+    torch.save(dict(exact_counts=exact_counts, steps=steps,
+                    peak=torch.cuda.max_memory_allocated() / 2**30),
+               os.path.join(tmp, f"rank{rank}.pt"))
+
+
+# [dp-step]'s tolerances against the one-process step on the same batch: the
+# first AdamW updates move each weight by about +-lr whatever its gradient's
+# size, so rounding in a gradient near 0 can flip one: 2.2 lr for each of the
+# step's two updates (lr 1e-4, model_udr18.yml); running statistics within
+# 5e-3 of each tensor's max |value|: the synced n of the duplicated batch is
+# 2n, whose unbiased factor 2n/(2n-1) against n/(n-1) moves a running
+# variance by m n/((n-1)(2n-1)) per update, at most 1.7e-3 over the step's
+# two at the bottleneck's n = 60, plus E[x^2] - E[x]^2's rounding
+DP_PARAM_ATOL = 2 * 2.2 * 1e-4
+DP_STAT_REL = 5e-3
+
+
+def phase_dp_step(card: str, weights: dict) -> tuple:
+    """[dp-step]: the data-parallel two-pass step of UDR18 at 256^2, 30 real
+    + 30 fake per rank, fp32 (TF32 off), two ranks on cuda:0 over gloo.
+    (1) Both ranks take the same batch and draws (drop rates 0): each
+    rank's parameters and BatchNorm statistics after one step against the
+    one-process step on that batch (DP_PARAM_ATOL, DP_STAT_REL). (2) The
+    ranks take the two halves of a 60 + 60 batch, each its own generator
+    and the YAML's drop rates, for 3 steps: the digests of parameters,
+    buffers and optimizer moments equal on both ranks after every step.
+    Checks every step's K1, K2 and K2-bwd launches on each rank (1, 32,
+    16). Returns the launch totals of the 3 steps on both ranks."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from unidefense_torch.train.perturb import PerturbDraws
+    from unidefense_torch.train.step import StepDraws
+
+    per_k2, _ = per_forward_launches("UDR18", 256, frozenset())
+    want = (1, 4 * per_k2, 2 * per_k2, 0, 0)
+    tmp = tempfile.mkdtemp(prefix="ud_dp_step_")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 41), 30, 30,
+                                  (60, 256, 256, 3))
+        draws = StepDraws(flip=torch.rand(60, generator=torch.Generator().manual_seed(SEED + 42))
+                          < 0.5, perturb=dataclasses.replace(draws, style=True, freq=True))
+        batch = _train_batch(30, 30, 256, SEED + 43, "cpu")
+        both = _train_batch(60, 60, 256, SEED + 44, "cpu")
+        halves = [{k: torch.cat([v[30 * r:30 * r + 30], v[60 + 30 * r:90 + 30 * r]])
+                   for k, v in both.items()} for r in range(DP_WORLD)]
+        torch.save(dict(weights=weights, batch=batch, draws=draws, halves=halves),
+                   os.path.join(tmp, "dp_step.pt"))
+        # the one-process step on the same batch and draws, here
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        state, step = _dp_state(weights, True)
+        step(state, _on_card(batch), None, draws)
+        ref = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _two_ranks_on_one_card(_dp_step_rank, tmp)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+        param_err = stat_err = 0.0
+        for r in range(DP_WORLD):
+            got = torch.load(os.path.join(tmp, f"exact{r}.pt"))
+            for k, v in ref.items():
+                if v.dtype != torch.float32:
+                    if not torch.equal(got[k], v):
+                        raise AssertionError(f"[dp-step] rank {r} {k}: {got[k]} vs {v}")
+                    continue
+                d = float((got[k] - v).abs().max())
+                if "running" in k:
+                    stat_err = max(stat_err, d / max(float(v.abs().max()), 1e-12))
+                else:
+                    param_err = max(param_err, d)
+        if not (param_err <= DP_PARAM_ATOL and stat_err <= DP_STAT_REL):
+            raise AssertionError(f"[dp-step] two ranks vs one process: params max |d| "
+                                 f"{param_err} (tol {DP_PARAM_ATOL}), statistics max rel "
+                                 f"{stat_err} (tol {DP_STAT_REL})")
+        for r, res in enumerate(ranks):
+            bad = [s["counts"] for s in res["steps"] if s["counts"] != want]
+            if res["exact_counts"] != want or bad:
+                raise AssertionError(f"[dp-step] rank {r} launches K1, K2, K2-bwd, K3, K3-bwd "
+                                     f"{res['exact_counts']}, {bad}; expected {want} a step")
+        digests = [[s["digest"] for s in res["steps"]] for res in ranks]
+        if digests[0] != digests[1]:
+            raise AssertionError(f"[dp-step] the ranks' states differ: {digests}")
+        totals = tuple(sum(s["counts"][i] for res in ranks for s in res["steps"])
+                       for i in range(5))
+        calls, nbytes = ranks[0]["steps"][-1]["all_reduce"]
+        log(f"[dp-step] UDR18 256^2 b30+30 per rank fp32 (TF32 off), two ranks on cuda:0 over "
+            f"gloo: (1) same batch and draws on both: parameters max |d| {param_err:.3g} (tol "
+            f"{DP_PARAM_ATOL:.3g}) and running statistics max rel {stat_err:.3g} (tol "
+            f"{DP_STAT_REL}) from the one-process step; (2) different halves, 3 steps: "
+            f"parameters, buffers and optimizer moments bitwise equal on both ranks after each "
+            f"(sha256 {digests[0][-1][:16]}), losses {[round(s['loss'], 5) for s in ranks[0]['steps']]}; "
+            f"launches per step and rank K1 {want[0]} K2 {want[1]} K2-bwd {want[2]} (totals "
+            f"{totals}); all_reduce per step and rank: {calls} calls, {nbytes} bytes; {card}")
+        log(f"[dp-step] not a speed figure (two ranks share one card and meet over gloo): ms "
+            f"per step rank 0 {[round(s['ms'], 2) for s in ranks[0]['steps']]}, rank 1 "
+            f"{[round(s['ms'], 2) for s in ranks[1]['steps']]}; peak GiB per rank "
+            f"{[round(res['peak'], 3) for res in ranks]}; phase {seconds:.2f} s; {card}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    return totals
+
+
+def _engine_dp_rank(rank: int, root: str, argv: list, out: str) -> None:
+    """[engine-fe-dp] on one rank: ``unidefense_torch.main.run(argv,
+    "cuda:0")`` in ``root``, each train step timed between two synchronises
+    with its launch deltas, each score_dataset's launches, batches and the
+    frames it scored per video, each merged validation; then the state's
+    digest and the run directory."""
+    import torch
+
+    from unidefense_torch import main as cli
+    from unidefense_torch.engines import base
+
+    os.chdir(root)
+    make_train_step, score_dataset = base.make_train_step, base.AbstractEngine.score_dataset
+    gather = base.AbstractEngine.gather_eval_output
+    steps, evals, merged = [], [], []
+
+    reduced = _Collectives()
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(state, batch, generator=None, draws=None):
+            torch.cuda.synchronize()
+            before, t0 = _route_counts(), time.perf_counter()
+            reduced.read()
+            out = step(state, batch, generator, draws)
+            torch.cuda.synchronize()
+            steps.append((tuple(b - a for a, b in zip(before, _route_counts())),
+                          (time.perf_counter() - t0) * 1e3, reduced.read()))
+            return out
+        return timed
+
+    def counted_score_dataset(engine, dataset, batch_size, *args, **kwargs):
+        before = _route_counts()
+        prob, tgt = score_dataset(engine, dataset, batch_size, *args, **kwargs)
+        torch.cuda.synchronize()
+        n = len(range(engine.dp.rank, len(dataset), engine.n_dev))
+        evals.append((-(-n // batch_size), tuple(b - a for a, b in zip(before, _route_counts())),
+                      {v: len(p) for v, p in prob.items()}))
+        return prob, tgt
+
+    def recorded_gather(engine, prob, tgt):
+        result = gather(engine, prob, tgt)
+        merged.append(result)
+        return result
+
+    base.make_train_step = timed_make_train_step
+    base.AbstractEngine.score_dataset = counted_score_dataset
+    base.AbstractEngine.gather_eval_output = recorded_gather
+    stdout = sys.stdout
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        engine = cli.run(argv, "cuda:0")
+    finally:
+        sys.stdout = stdout
+    torch.cuda.synchronize()
+    torch.save(dict(steps=steps, evals=evals, merged=merged, step=engine.state.step,
+                    digest=_state_digest(engine.state.model, engine.state.opt_state),
+                    run_dir=engine.run_dir, device=str(engine.device), world=engine.n_dev,
+                    peak=torch.cuda.max_memory_allocated() / 2**30),
+               os.path.join(out, f"rank{rank}.pt"))
+
+
+def phase_engine_fe_dp(card: str, root: str) -> tuple:
+    """[engine-fe-dp]: the FE engine of [engine-fe] (UDEB4 380^2 bf16,
+    model_udeb4.yml and data_ffc23.yml on its tree under ``root``, its
+    backbone file) on two ranks on cuda:0 over gloo, b10+10 per rank, 4
+    steps validated at 2 and 4. Checks every rank's launches per train step
+    (1, 96, 48) and per eval batch (1, 24); every validation frame scored
+    once over the two stripes; the ranks' states equal bitwise after the
+    run and rank 0's ckpt/best and ckpt/latest; then, in this process, the
+    run resumed on one card: its restored state bitwise the ranks', its
+    score_dataset of the whole split equal to the ranks' merged validation
+    of step 4 (every frame within 1e-6, the metrics within 1e-6), and it
+    trains on to step 6. Returns the launch totals of both ranks."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch.config import load_config
+    from unidefense_torch.engines import get_engine
+    from unidefense_torch.utils.metrics import cal_metrics
+
+    per_k2, _ = per_forward_launches("UDEB4", 380, frozenset())
+    step_want, eval_want = (1, 4 * per_k2, 2 * per_k2, 0, 0), (1, per_k2, 0, 0, 0)
+    run_id = f"chip-smoke-dp-{os.getpid()}"
+    os.makedirs(os.path.join(root, "dp"))
+    first, resumed = _engine_configs(
+        os.path.join(root, "dp"), "UDEB4", run_id, steps=(4, 6),
+        model_keys={"extractor_weights": os.path.join(root, "adv-efficientnet-b4.pth")},
+        root=os.path.join(root, "ffpp"), fake_method=["Deepfakes"], log_steps=2, val_steps=2)
+    out = os.path.join(root, "dp-out")
+    os.makedirs(out)
+    gc.collect()  # the earlier phases' engines, before the ranks take the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _two_ranks_on_one_card(_engine_dp_rank, root, ["--config", first, "--engine", "FE",
+                                                   "--offline"], out)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    for r, res in enumerate(ranks):
+        bad = [c for c, _, _ in res["steps"] if c != step_want]
+        eval_bad = [(b, c) for b, c, _ in res["evals"] if c != tuple(b * e for e in eval_want)]
+        if res["world"] != DP_WORLD or res["step"] != 4 or len(res["steps"]) != 4 or bad or \
+                eval_bad:
+            raise AssertionError(f"[engine-fe-dp] rank {r}: world {res['world']}, step "
+                                 f"{res['step']}, step launches off {bad}, eval launches off "
+                                 f"{eval_bad}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("[engine-fe-dp] the ranks' states differ after the run")
+    if ranks[0]["merged"] != ranks[1]["merged"]:
+        raise AssertionError("[engine-fe-dp] the ranks merged different validations")
+    run_dir = os.path.join(root, ranks[0]["run_dir"])
+    for name in ("best", "latest"):
+        if not os.path.isdir(os.path.join(run_dir, "ckpt", name)):
+            raise AssertionError(f"[engine-fe-dp] rank 0 wrote no ckpt/{name}")
+    # one card: resume the run (step 4) and score the whole split
+    cwd, stdout = os.getcwd(), sys.stdout
+    os.chdir(root)
+    try:
+        cfg = load_config(resumed, engine="FE")
+        cfg["config"]["offline"] = True
+        one = get_engine("FE")(cfg, stage="Train")
+        restored = _state_digest(one.state.model, one.state.opt_state)
+        prob, tgt = one.score_dataset(one.val_set, one.val_batch_size, {"crop": one.crop}, 4)
+        want = one.gather_eval_output(prob, tgt)
+        one.train()
+    finally:
+        sys.stdout = stdout
+        os.chdir(cwd)
+    if restored != ranks[0]["digest"] or one.state.step != 6:
+        raise AssertionError(f"[engine-fe-dp] one card: restored {restored}, the ranks' "
+                             f"{ranks[0]['digest']}; step {one.state.step} (expected 6)")
+    stripes = [res["evals"][-1][2] for res in ranks]
+    scored = {v: sum(s.get(v, 0) for s in stripes) for v in prob}
+    if scored != {v: len(p) for v, p in prob.items()} or \
+            sum(map(len, prob.values())) != len(one.val_set):
+        raise AssertionError(f"[engine-fe-dp] frames scored per video by the stripes {stripes}, "
+                             f"by one process {({v: len(p) for v, p in prob.items()})}")
+    got = ranks[0]["merged"][-1]
+    frame_err = float(np.abs(np.sort(got["frame_prob"]) - np.sort(want["frame_prob"])).max())
+    mg = cal_metrics(np.asarray(got["frame_tgt"]), np.asarray(got["frame_prob"]), threshold=0.5)
+    mw = cal_metrics(np.asarray(want["frame_tgt"]), np.asarray(want["frame_prob"]),
+                     threshold=0.5)
+    metric_err = max(abs(mg[k] - mw[k]) for k in ("AUC", "ACC", "EER"))
+    if not (frame_err <= 1e-6 and metric_err <= 1e-6):
+        raise AssertionError(f"[engine-fe-dp] merged stripes vs one process: frames max |d| "
+                             f"{frame_err}, metrics max |d| {metric_err} (tol 1e-6): {mg} vs {mw}")
+    totals = tuple(sum(c[i] for res in ranks for c, _, _ in res["steps"]) +
+                   sum(c[i] for res in ranks for _, c, _ in res["evals"]) for i in range(5))
+    log(f"[engine-fe-dp] python -m unidefense_torch.main --engine FE on two ranks (cuda:0, "
+        f"gloo): UDEB4 380^2 b10+10 per rank bf16, 4 steps, validation at 2 and 4 striped "
+        f"({[sum(s.values()) for s in stripes]} frames per rank, {len(one.val_set)} in all, each "
+        f"once); states bitwise equal on both ranks; rank 0 wrote ckpt/best and ckpt/latest; "
+        f"resumed on one card: restored bitwise, its score_dataset against the merged stripes "
+        f"max |dprob| {frame_err:.3g}, AUC {mw['AUC']:.4f} ACC {mw['ACC']:.4f} EER "
+        f"{mw['EER']:.4f} (max |d| {metric_err:.3g}, tol 1e-6), trained on to step "
+        f"{one.state.step}; launches per step and rank K1 1 K2 {4 * per_k2} K2-bwd "
+        f"{2 * per_k2}, per eval batch K1 1 K2 {per_k2} (totals {totals}); all_reduce per "
+        f"step and rank: {ranks[0]['steps'][-1][2][0]} calls, {ranks[0]['steps'][-1][2][1]} "
+        f"bytes; {card}")
+    log(f"[engine-fe-dp] not a speed figure (two ranks share one card and meet over gloo): "
+        f"ms per step rank 0 {[round(t, 2) for _, t, _ in ranks[0]['steps']]}, rank 1 "
+        f"{[round(t, 2) for _, t, _ in ranks[1]['steps']]}; peak GiB per rank "
+        f"{[round(res['peak'], 3) for res in ranks]}; two-rank run {seconds:.2f} s; {card}")
+    return totals
+
+
+def phase_dp_cards(card: str, root: str, weights: dict) -> None:
+    """[dp-nccl] and [serve-dp], where the host has two cards or more:
+    ``python -m unidefense_torch.main --engine FE --num_devices 2`` over
+    NCCL (rank r on cuda:r) on [engine-fe]'s tree, 2 steps validated at 2;
+    and ``Predictor(num_devices=2)`` against the one-device Predictor on the
+    same 64 frames (UDEB4 380^2 b32 bf16). On one card it says so."""
+    import numpy as np
+    import torch
+
+    from unidefense_torch import main as cli
+    from unidefense_torch.inference import Predictor
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[dp-nccl] [serve-dp] not run: this host has {n} card; NCCL refuses two ranks on "
+            f"one device, so NCCL training and the two-replica Predictor wait for a host with "
+            f"two cards or more; {card}")
+        return
+    os.makedirs(os.path.join(root, "nccl"))
+    first, _ = _engine_configs(
+        os.path.join(root, "nccl"), "UDEB4", f"chip-smoke-nccl-{os.getpid()}", steps=(2, 3),
+        root=os.path.join(root, "ffpp"), fake_method=["Deepfakes"], log_steps=2, val_steps=2)
+    cwd, stdout = os.getcwd(), sys.stdout
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        if cli.main(["--config", first, "--engine", "FE", "--offline", "--num_devices", "2"]) \
+                is not None:
+            raise AssertionError("[dp-nccl] main with --num_devices 2 returned an engine")
+        seconds = time.perf_counter() - t0
+    finally:
+        sys.stdout = stdout
+        os.chdir(cwd)
+    run_dir = os.path.join(root, "runs", "UDEB4", f"chip-smoke-nccl-{os.getpid()}")
+    with open(os.path.join(run_dir, "records.txt")) as f:
+        records = f.read()
+    if records.count("Train Iter (2/2)") != 1 or not os.path.isdir(os.path.join(run_dir, "ckpt",
+                                                                               "latest")):
+        raise AssertionError(f"[dp-nccl] rank 0's records or checkpoint missing in {run_dir}")
+    log(f"[dp-nccl] python -m unidefense_torch.main --engine FE --num_devices 2 over NCCL "
+        f"(cuda:0, cuda:1): UDEB4 380^2 b10+10 per rank bf16, 2 steps and a validation, "
+        f"{seconds:.2f} s with the ranks' start; rank 0's records and ckpt written; {card}")
+    spec = model_spec("UDEB4")
+    frames = np.random.default_rng(SEED + 45).integers(0, 256, (64, 380, 380, 3), dtype=np.uint8)
+    one = Predictor("UDEB4", spec["model"], state_dict=weights, input_size=380, batch_size=32)
+    two = Predictor("UDEB4", spec["model"], state_dict=weights, input_size=380, batch_size=32,
+                    num_devices=2)
+    p1, p2 = one.predict_frames(frames), two.predict_frames(frames)
+    t0 = time.perf_counter()
+    two.predict_frames(frames)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(p1 - p2).max())
+    # [parity]'s bf16 bound: the replicas convolve b16 batches, which cuDNN
+    # may take with other algorithms than b32's
+    if not err <= 2e-2:
+        raise AssertionError(f"[serve-dp] two replicas vs one: max |dprob| {err} (tol 2e-2)")
+    log(f"[serve-dp] Predictor(num_devices=2) UDEB4 380^2 b32 bf16 (b16 per card) against one "
+        f"device on 64 frames: max |dprob| {err:.3g} (tol 2e-2); {ms:.2f} ms for the 64 frames "
+        f"(one sample); {card}")
 
 
 # the synthetic face anti-spoofing tree of [engine-ocim]: the four OCIM
@@ -2616,7 +3112,13 @@ def main() -> int:
     _, _, _, k3_launches, k3_bwd_launches = phase_train(card, weights, "UDEB4", V4_WIDTHS[380],
                                                         "train-v4")
     phase_train_parity(card, weights)  # [train-parity] and [train-parity-v4]
-    trained["engine-fe"] = phase_engine_fe(card, udeb4)
+    fe_root = tempfile.mkdtemp(prefix="ud_engine_fe_")
+    try:
+        trained["engine-fe"] = phase_engine_fe(card, udeb4, fe_root)
+        trained["engine-fe-dp"] = phase_engine_fe_dp(card, fe_root)
+        phase_dp_cards(card, fe_root, udeb4)
+    finally:
+        shutil.rmtree(fe_root, ignore_errors=True)
     udr = {}
     for model in ("UDR18", "UDR50"):
         tag = model.lower()
@@ -2626,13 +3128,16 @@ def main() -> int:
         phase_parity(card, weights, model, tag=f"parity-{tag}")
         trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
+    trained["dp-step"] = phase_dp_step(card, udr["UDR18"])
     trained["engine-ocim"] = phase_engine_ocim(card, udr["UDR18"])
     trained["engine-ue"] = phase_engine_ue(card, udeb4)
     phase_corrupt(card)
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
     # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the engines' runs
-    # (their steps and eval batches: FE's five, OCIM's and UE's three)
+    # (their steps and eval batches: FE's five, OCIM's and UE's three), and
+    # of the data-parallel paths on both ranks ([dp-step]'s 3 steps,
+    # [engine-fe-dp]'s run)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))
     by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}

@@ -249,29 +249,49 @@ def _png_filter(row, prev, bpp, f):
     return ((r - pred) & 255).astype(np.uint8)
 
 
-def png_bytes(samples, depth, colour, level=6, filters=(0,), palette=None, extra=b""):
+# Adam7's seven reduced images in stream order: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _png_rows(samples, depth):
+    """The raw scanline bytes of ``samples`` (H, W[, C]) at ``depth`` bits."""
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1).astype(np.int64)
+    if depth >= 8:
+        return flat.astype(np.uint8 if depth == 8 else ">u2").view(np.uint8).reshape(h, -1)
+    rows = np.zeros((h, (flat.shape[1] * depth + 7) // 8), np.uint8)
+    for x in range(flat.shape[1]):
+        rows[:, x * depth // 8] |= (flat[:, x] << (8 - depth - x * depth % 8)).astype(np.uint8)
+    return rows
+
+
+def png_bytes(samples, depth, colour, level=6, filters=(0,), palette=None, extra=b"",
+              interlace=0):
     """A PNG written here byte by byte (no cv2, no Pillow): ``samples``
     (H, W, C) of ``depth`` bits, or (H, W) palette indices for colour type
     3; the rows filtered by ``filters`` in turn, zlib at ``level`` (0 writes
     stored blocks), the stream split over IDAT chunks of 997 bytes, and
-    ``extra`` chunks before them."""
+    ``extra`` chunks before them. ``interlace=1`` writes Adam7: the seven
+    reduced images in turn, each filtered as an image of its own (its first
+    row against zeros, ``filters`` from its first row), empty ones left
+    out."""
     h, w = samples.shape[:2]
-    flat = samples.reshape(h, -1).astype(np.int64)
-    if depth < 8:
-        rows = np.zeros((h, (flat.shape[1] * depth + 7) // 8), np.uint8)
-        for x in range(flat.shape[1]):
-            rows[:, x * depth // 8] |= (flat[:, x] << (8 - depth - x * depth % 8)).astype(np.uint8)
-    else:
-        rows = flat.astype(np.uint8 if depth == 8 else ">u2").view(np.uint8).reshape(h, -1)
     channels = 1 if samples.ndim == 2 else samples.shape[2]
     bpp = max(1, channels * depth // 8)
-    data, prev = bytearray(), np.zeros(rows.shape[1], np.uint8)
-    for y in range(h):
-        f = filters[y % len(filters)]
-        data += bytes([f]) + _png_filter(rows[y], prev, bpp, f).tobytes()
-        prev = rows[y]
+    data = bytearray()
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        rows = _png_rows(sub, depth)
+        prev = np.zeros(rows.shape[1], np.uint8)
+        for y in range(rows.shape[0]):
+            f = filters[y % len(filters)]
+            data += bytes([f]) + _png_filter(rows[y], prev, bpp, f).tobytes()
+            prev = rows[y]
     out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
-                                                                  colour, 0, 0, 0)) + extra
+                                                                  colour, 0, 0, interlace)) + extra
     if palette is not None:
         out += _png_chunk(b"PLTE", palette.tobytes())
     z = zlib.compress(bytes(data), level)
@@ -293,19 +313,21 @@ def _decodes_as_cv2(blob, pillow=True):
         np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(blob)).convert("RGB")))
 
 
-# (colour type, bit depth): every layout PNG allows, interlacing aside
+# (colour type, bit depth): every layout PNG allows; each plain and Adam7
 PNG_LAYOUTS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
                (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+PNG_CASES = [(c, d, i) for i in (0, 1) for c, d in PNG_LAYOUTS]
 
 
-@pytest.mark.parametrize("colour,depth", PNG_LAYOUTS,
-                         ids=[f"type{c}-{d}bit" for c, d in PNG_LAYOUTS])
-def test_png_decodes_as_cv2_and_pillow(colour, depth):
+@pytest.mark.parametrize("colour,depth,interlace", PNG_CASES,
+                         ids=[f"type{c}-{d}bit" + ("-adam7" if i else "") for c, d, i in PNG_CASES])
+def test_png_decodes_as_cv2_and_pillow(colour, depth, interlace):
     """PNG frames (the frames of Celeb-DF): every colour type and bit depth,
-    each row filter alone and all five in turn, stored, fast and best zlib
-    blocks, an ancillary chunk, frame sizes down to 1x1, bit for bit as
-    cv2 decodes them in colour (16-bit samples to their high byte; Pillow
-    reads those otherwise, so it is held at 8 bits and below)."""
+    plain and interlaced (Adam7), each row filter alone and all five in
+    turn, stored, fast and best zlib blocks, an ancillary chunk, frame sizes
+    down to 1x1 (where six of Adam7's seven passes are empty), bit for bit
+    as cv2 decodes them in colour (16-bit samples to their high byte;
+    Pillow reads those otherwise, so it is held at 8 bits and below)."""
     rng = np.random.default_rng(colour * 17 + depth)
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[colour]
     for h, w in ((7, 13), (31, 17), (1, 1), (40, 52)):
@@ -318,8 +340,8 @@ def test_png_decodes_as_cv2_and_pillow(colour, depth):
         for level in (0, 1, 9):
             for filters in ((0,), (1,), (2,), (3,), (4,), (0, 1, 2, 3, 4)):
                 extra = _png_chunk(b"tEXt", b"key\x00value") if level == 1 else b""
-                _decodes_as_cv2(png_bytes(samples, depth, colour, level, filters, palette, extra),
-                                pillow=depth <= 8)
+                _decodes_as_cv2(png_bytes(samples, depth, colour, level, filters, palette, extra,
+                                          interlace), pillow=depth <= 8)
 
 
 def test_png_from_cv2_and_pillow():
@@ -357,21 +379,23 @@ def test_png_crops_and_resizes_as_its_jpeg_twin(interp):
 
 def test_broken_png_raises():
     """A damaged IDAT (its CRC), a cut stream, a bad zlib check, an unknown
-    critical chunk and an interlaced frame raise IOError."""
+    critical chunk, and an interlaced frame cut short, raise IOError; an
+    interlaced frame whole decodes as cv2 decodes it."""
     samples = np.random.default_rng(5).integers(0, 256, (24, 20, 3))
     good = png_bytes(samples, 8, 2, level=6, filters=(4,))
     bad = bytearray(good)
     bad[60] ^= 0xFF
-    ihdr = struct.pack(">IIBBBBB", 20, 24, 8, 2, 0, 0, 1)
-    interlaced = good[:8] + _png_chunk(b"IHDR", ihdr) + good[33:]
+    interlaced = png_bytes(samples, 8, 2, level=6, filters=(4,), interlace=1)
+    _decodes_as_cv2(interlaced)
     unknown = good[:33] + _png_chunk(b"ABCD", b"x") + good[33:]
     z = zlib.compress(b"\x00" * (24 * 61))
     bad_adler = (good[:33] + _png_chunk(b"IDAT", z[:-1] + bytes([z[-1] ^ 1]))
                  + _png_chunk(b"IEND", b""))
-    for blob in (bytes(bad), good[:len(good) // 2], interlaced, unknown, bad_adler):
+    for blob in (bytes(bad), good[:len(good) // 2], interlaced[:len(interlaced) // 2], unknown,
+                 bad_adler):
         with pytest.raises(IOError):
             tnative.decode_batch([good, blob], None, 24, 20)
-    assert tnative.decode_batch([good], None, 24, 20).shape == (1, 24, 20, 3)
+    assert tnative.decode_batch([good, interlaced], None, 24, 20).shape == (2, 24, 20, 3)
 
 
 @pytest.mark.parametrize("crop,margin", [("nocrop", None), ("4p", 0.4), ("4p", (0.2, 0.8))])

@@ -343,12 +343,14 @@ def test_cli_parses_the_jax_flags(argv):
 
 
 def test_cli_refuses_what_is_not_ported(fe_config, tmp_path, monkeypatch):
-    """More than one device is refused; the default engine, UE, is ported
-    and is what runs (here it stops at the missing card)."""
+    """More devices than this host has cards are refused, before a rank
+    starts (JAX's create_mesh takes fewer; ROADMAP.md section 3); the
+    default engine, UE, is ported and is what runs (here it stops at the
+    missing card)."""
     cfg_path = tmp_path / "model.yml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump({k: v for k, v in fe_config.items() if k != "cfg_path"}, f)
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(ValueError, match="num_devices=2 exceeds the 0 CUDA device"):
         tmain.main(["--config", str(cfg_path), "--engine", "FE", "--num_devices", "2"])
     asked = []
     monkeypatch.setattr(tmain, "get_engine", lambda name: asked.append(name) or get_engine(name))

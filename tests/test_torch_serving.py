@@ -150,8 +150,8 @@ def test_dequantize_runs_in_the_compute_dtype():
 def test_predictor_refuses_unknown_modes_and_devices(udr18):
     """An unknown ``quantize`` raises ValueError, in the constructor and on
     a reinstall (the alternate constructors set it after __init__, as
-    tests/test_quant.py checks of the JAX Predictor); more than one device
-    waits for ROADMAP.md's parallelism item."""
+    tests/test_quant.py checks of the JAX Predictor); devices that do not
+    divide the batch raise ValueError, as in the JAX Predictor."""
     _, v, _ = udr18
     with pytest.raises(ValueError, match="fp4"):
         _port(v, quantize="fp4")
@@ -159,8 +159,8 @@ def test_predictor_refuses_unknown_modes_and_devices(udr18):
     pred.quantize = "int4"
     with pytest.raises(ValueError, match="int4"):
         pred._install()
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        _port(v, num_devices=2)
+    with pytest.raises(ValueError, match="batch_size 4 not divisible by num_devices 3"):
+        _port(v, num_devices=3)
 
 
 def test_from_run_export_and_from_torch_checkpoint(udr18, tmp_path):

@@ -15,6 +15,12 @@ the removal and the last rename leaves no checkpoint of that name (a resume
 then starts fresh) or one without its sidecar (a resume then takes the step
 from ``model.pt`` and starts its best-metric bookkeeping anew). The plateau
 LR multiplier ``lr_scale`` rides in the sidecar.
+
+Across ranks (unidefense_tpu/checkpoint.py:27-81): rank 0 creates the
+directory and writes, every rank enters ``save`` and waits at a barrier
+after it, so no rank reads a checkpoint half written; every rank restores
+from the same files, which hold no device, so a run resumes on another
+number of ranks.
 """
 
 from __future__ import annotations
@@ -43,17 +49,34 @@ def _host(tensors: dict) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, run_dir: str):
+    """``dp``: the caller's ``parallel.DataParallel`` (None: one process)."""
+
+    def __init__(self, run_dir: str, dp=None):
         self.run_dir = os.path.abspath(run_dir)
         self.ckpt_dir = os.path.join(self.run_dir, "ckpt")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.dp = dp
+        if self._primary:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    @property
+    def _primary(self) -> bool:
+        return self.dp is None or self.dp.primary
 
     def _path(self, best: bool) -> str:
         return os.path.join(self.ckpt_dir, "best" if best else "latest")
 
     def save(self, state: TrainState, meta: dict, best: bool = False):
         """Save the state and the scalar metadata; the per-validation
-        best/latest scheme of engine/forgery_engine.py:215-223."""
+        best/latest scheme of engine/forgery_engine.py:215-223. Every rank
+        calls it; rank 0 writes."""
+        if self._primary:
+            self._write(state, meta, best)
+        if self.dp is not None and self.dp.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.dp.group)
+
+    def _write(self, state: TrainState, meta: dict, best: bool):
         path = self._path(best)
         tmp = path + ".tmp"
         if os.path.exists(tmp):

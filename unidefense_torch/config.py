@@ -11,8 +11,8 @@ Additive keys, as in the JAX package:
   passes quirk (default true; see train/step.py).
 
 ``--engine`` defaults to ``UE`` (the UniAttack engine), as in the JAX CLI.
-The port runs on one card: ``--num_devices`` above 1 is refused
-(:func:`check_num_devices`).
+``--num_devices N`` trains on N cards, one rank each (``main.py``,
+``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def load_dataset_config(config: dict) -> dict:
 def arg_parser(argv=None) -> argparse.Namespace:
     """CLI parity with the reference's main.py:8-35."""
     parser = argparse.ArgumentParser(
-        description="Training and Testing Script for UniDefense (PyTorch, one GPU)."
+        description="Training and Testing Script for UniDefense (PyTorch, one GPU per rank)."
     )
     parser.add_argument("--config", type=str, required=True,
                         help="Path of the configuration file to be used.")
@@ -66,8 +66,10 @@ def arg_parser(argv=None) -> argparse.Namespace:
                         choices=["FE", "OCIM", "UE"],
                         help="Engine: 'FE' (Forgery), 'OCIM' (FAS), 'UE' (UniAttack).")
     parser.add_argument("--local_rank", "-r", type=int, default=0,
-                        help="Process index for multi-host training, or the device "
-                             "index for single-device testing; 0 on one card.")
+                        help="Accepted as the reference's launcher passes it, and kept in "
+                             "config.local_rank; a rank's place and card come from the "
+                             "environment that torchrun or --num_devices sets (RANK, "
+                             "LOCAL_RANK).")
     parser.add_argument("--exp_id", type=str, default=None, help="Overwrite exp id.")
     parser.add_argument("--ds_config", type=str, default=None,
                         help="Overwrite dataset config path.")
@@ -76,18 +78,11 @@ def arg_parser(argv=None) -> argparse.Namespace:
     parser.add_argument("--test", action="store_true",
                         help="Activate test mode (otherwise: training mode).")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Number of GPUs; the port runs on one (ROADMAP.md: parallelism).")
+                        help="Number of GPUs, one rank each: a plain launch spawns them on "
+                             "this host; under torchrun it must equal WORLD_SIZE.")
     return parser.parse_args(argv)
 
 
 def deep_copy_cfg(cfg: dict) -> dict:
     return copy.deepcopy(cfg)
 
-
-def check_num_devices(num_devices) -> None:
-    """The port trains, tests and serves on one card; more waits for
-    ROADMAP.md's parallelism item."""
-    if num_devices is not None and int(num_devices) > 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices}: unidefense_torch runs on one GPU; data parallelism "
-            "waits for ROADMAP.md's item 'parallelism'")

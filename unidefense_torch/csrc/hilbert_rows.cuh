@@ -45,14 +45,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Raise a kernel's dynamic shared memory limit once, to the largest size
-// asked for so far.
+// The dynamic shared memory limit a kernel was raised to, per device: the
+// attribute belongs to the device's context, so a process that launches on
+// several cards (a Predictor's replicas) raises it on each.
+constexpr int kMaxDevices = 64;
+struct SmemLimit {
+  size_t bytes[kMaxDevices] = {};
+};
+
+// Raise a kernel's dynamic shared memory limit on the current device once,
+// to the largest size asked for there so far.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e == cudaSuccess) *configured = bytes;
+cudaError_t allow_smem(Kernel kernel, size_t bytes, SmemLimit* configured) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= configured->bytes[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) configured->bytes[dev] = bytes;
   return e;
 }
 
@@ -90,7 +101,7 @@ hilbert_rows_kernel(const T* __restrict__ x, const T* __restrict__ hm, T* __rest
 template <typename T>
 cudaError_t launch_hilbert_rows(const T* x, const T* hm, T* hx, int rows, int W, int C,
                                 cudaStream_t s) {
-  static size_t configured = 0;
+  static SmemLimit configured;
   const size_t smem = sizeof(float) * ((size_t)W * W + (size_t)W * kHC);
   cudaError_t e = allow_smem(hilbert_rows_kernel<T>, smem, &configured);
   if (e != cudaSuccess) return e;
@@ -177,7 +188,7 @@ hilbert_rows_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
 inline cudaError_t launch_hilbert_rows(const __nv_bfloat16* x, const __nv_bfloat16* hm,
                                        __nv_bfloat16* hx, int rows, int W, int C,
                                        cudaStream_t s) {
-  static size_t configured = 0;
+  static SmemLimit configured;
   const size_t smem = hilbert_mma_smem(W);
   cudaError_t e = allow_smem(hilbert_rows_mma_kernel, smem, &configured);
   if (e != cudaSuccess) return e;

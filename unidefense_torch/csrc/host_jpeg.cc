@@ -732,7 +732,9 @@ long encode(const uint8_t* rgb, int h, int w, int quality, uint8_t* out, size_t 
 // type) so that the library needs neither libpng nor zlib. The frame comes
 // out as cv2.imdecode(..., IMREAD_COLOR) gives it, in RGB: alpha dropped,
 // grey replicated, palettes looked up, grey of 1, 2 or 4 bits scaled to 8,
-// 16-bit samples cut to their high byte. Interlaced (Adam7) frames fail.
+// 16-bit samples cut to their high byte. An interlaced (Adam7) frame is
+// seven reduced images in turn, each unfiltered with its own row width and
+// scattered into the frame.
 
 const uint8_t kPngSignature[8] = {137, 80, 78, 71, 13, 10, 26, 10};
 
@@ -944,6 +946,7 @@ bool inflate_zlib(const uint8_t* in, size_t n, size_t cap, std::vector<uint8_t>*
 
 struct PngHeader {
   int width = 0, height = 0, depth = 0, colour = 0, channels = 0;
+  bool interlaced = false;
 };
 
 // The IHDR of a PNG blob: the size and the sample layout, checked.
@@ -958,9 +961,10 @@ bool png_header(const uint8_t* blob, size_t size, PngHeader* hd) {
   hd->colour = d[9];
   static const int kChannels[7] = {1, 0, 3, 1, 2, 0, 4};
   if (w == 0 || h == 0 || w > (1u << 16) || h > (1u << 16) || hd->colour > 6 ||
-      kChannels[hd->colour] == 0 || d[10] != 0 || d[11] != 0 || d[12] != 0) {
-    return false;  // compression, filter method, interlace: 0 only
+      kChannels[hd->colour] == 0 || d[10] != 0 || d[11] != 0 || d[12] > 1) {
+    return false;  // compression and filter method 0; interlace 0 or 1 (Adam7)
   }
+  hd->interlaced = d[12] == 1;
   const int depth = hd->depth;
   const bool ok_depth = hd->colour == 0 ? (depth == 1 || depth == 2 || depth == 4 || depth == 8 ||
                                            depth == 16)
@@ -1005,79 +1009,100 @@ bool decode_png(const uint8_t* blob, size_t size, std::vector<uint8_t>* pixels, 
   }
   if (hd.colour == 3 && palette.empty()) return false;
   const int w = hd.width, h = hd.height, depth = hd.depth, ch = hd.channels;
-  const size_t stride = (static_cast<size_t>(w) * ch * depth + 7) / 8;
+  // the reduced images in stream order: (x0, y0, dx, dy) of Adam7's seven
+  // passes, or one pass of the whole frame
+  static const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                   {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};
+  static const int kWhole[1][4] = {{0, 0, 1, 1}};
+  const int (*passes)[4] = hd.interlaced ? kAdam7 : kWhole;
+  const int num_passes = hd.interlaced ? 7 : 1;
   const size_t bpp = std::max<size_t>(1, static_cast<size_t>(ch) * depth / 8);
-  const size_t raw_size = static_cast<size_t>(h) * (stride + 1);
+  size_t raw_size = 0;
+  for (int p = 0; p < num_passes; ++p) {
+    const size_t pw = (w - passes[p][0] + passes[p][2] - 1) / passes[p][2];
+    const size_t ph = (h - passes[p][1] + passes[p][3] - 1) / passes[p][3];
+    if (pw > 0 && ph > 0) raw_size += ph * ((pw * ch * depth + 7) / 8 + 1);
+  }
   std::vector<uint8_t> raw;
   // libpng tolerates data past the last row; allow up to 64 KiB of it
   if (!inflate_zlib(idat.data(), idat.size(), raw_size + 65536, &raw) || raw.size() < raw_size) {
     return false;
   }
-  // undo the row filters in place (each row's filter byte, then its bytes)
-  std::vector<uint8_t> zero(stride, 0);
-  for (int y = 0; y < h; ++y) {
-    uint8_t* row = raw.data() + static_cast<size_t>(y) * (stride + 1);
-    const uint8_t filter = row[0];
-    uint8_t* cur = row + 1;
-    const uint8_t* up = y > 0 ? cur - (stride + 1) : zero.data();
-    switch (filter) {
-      case 0:
-        break;
-      case 1:
-        for (size_t x = bpp; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + cur[x - bpp]);
-        break;
-      case 2:
-        for (size_t x = 0; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + up[x]);
-        break;
-      case 3:
-        for (size_t x = 0; x < stride; ++x) {
-          const int left = x >= bpp ? cur[x - bpp] : 0;
-          cur[x] = static_cast<uint8_t>(cur[x] + ((left + up[x]) >> 1));
-        }
-        break;
-      case 4:
-        for (size_t x = 0; x < stride; ++x) {
-          const int a = x >= bpp ? cur[x - bpp] : 0, b = up[x], c = x >= bpp ? up[x - bpp] : 0;
-          const int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
-          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
-          cur[x] = static_cast<uint8_t>(cur[x] + pred);
-        }
-        break;
-      default:
-        return false;
-    }
-  }
-  // samples -> RGB
   pixels->resize(static_cast<size_t>(w) * h * 3);
   const int scale = depth >= 8 ? 1 : 255 / ((1 << depth) - 1);
-  for (int y = 0; y < h; ++y) {
-    const uint8_t* src = raw.data() + static_cast<size_t>(y) * (stride + 1) + 1;
-    uint8_t* dst = pixels->data() + static_cast<size_t>(y) * w * 3;
-    for (int x = 0; x < w; ++x, dst += 3) {
-      if (depth < 8) {
-        const int bit = x * depth;
-        const int v = (src[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
-        if (hd.colour == 3) {
-          if (3 * v + 2 >= static_cast<int>(palette.size())) return false;
-          std::memcpy(dst, &palette[3 * v], 3);
-        } else {
-          dst[0] = dst[1] = dst[2] = static_cast<uint8_t>(v * scale);
-        }
-        continue;
-      }
-      const int step = depth / 8;  // the high byte comes first
-      const uint8_t* s = src + static_cast<size_t>(x) * ch * step;
-      if (hd.colour == 3) {
-        if (3 * s[0] + 2 >= static_cast<int>(palette.size())) return false;
-        std::memcpy(dst, &palette[3 * s[0]], 3);
-      } else if (ch >= 3) {
-        dst[0] = s[0];
-        dst[1] = s[step];
-        dst[2] = s[2 * step];
-      } else {
-        dst[0] = dst[1] = dst[2] = s[0];
+  uint8_t* at = raw.data();
+  for (int p = 0; p < num_passes; ++p) {
+    const int x0 = passes[p][0], y0 = passes[p][1], dx = passes[p][2], dy = passes[p][3];
+    const int pw = (w - x0 + dx - 1) / dx, ph = (h - y0 + dy - 1) / dy;
+    if (pw <= 0 || ph <= 0) continue;  // an empty pass has no rows, not even filter bytes
+    const size_t stride = (static_cast<size_t>(pw) * ch * depth + 7) / 8;
+    // undo the row filters in place (each row's filter byte, then its bytes)
+    std::vector<uint8_t> zero(stride, 0);
+    for (int y = 0; y < ph; ++y) {
+      uint8_t* row = at + static_cast<size_t>(y) * (stride + 1);
+      const uint8_t filter = row[0];
+      uint8_t* cur = row + 1;
+      const uint8_t* up = y > 0 ? cur - (stride + 1) : zero.data();
+      switch (filter) {
+        case 0:
+          break;
+        case 1:
+          for (size_t x = bpp; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + cur[x - bpp]);
+          break;
+        case 2:
+          for (size_t x = 0; x < stride; ++x) cur[x] = static_cast<uint8_t>(cur[x] + up[x]);
+          break;
+        case 3:
+          for (size_t x = 0; x < stride; ++x) {
+            const int left = x >= bpp ? cur[x - bpp] : 0;
+            cur[x] = static_cast<uint8_t>(cur[x] + ((left + up[x]) >> 1));
+          }
+          break;
+        case 4:
+          for (size_t x = 0; x < stride; ++x) {
+            const int a = x >= bpp ? cur[x - bpp] : 0, b = up[x], c = x >= bpp ? up[x - bpp] : 0;
+            const int q = a + b - c, pa = std::abs(q - a), pb = std::abs(q - b),
+                      pc = std::abs(q - c);
+            const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+            cur[x] = static_cast<uint8_t>(cur[x] + pred);
+          }
+          break;
+        default:
+          return false;
       }
     }
+    // samples -> RGB, each into its place in the frame
+    for (int y = 0; y < ph; ++y) {
+      const uint8_t* src = at + static_cast<size_t>(y) * (stride + 1) + 1;
+      uint8_t* dst_row = pixels->data() + static_cast<size_t>(y0 + y * dy) * w * 3;
+      for (int x = 0; x < pw; ++x) {
+        uint8_t* dst = dst_row + static_cast<size_t>(x0 + x * dx) * 3;
+        if (depth < 8) {
+          const int bit = x * depth;
+          const int v = (src[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1);
+          if (hd.colour == 3) {
+            if (3 * v + 2 >= static_cast<int>(palette.size())) return false;
+            std::memcpy(dst, &palette[3 * v], 3);
+          } else {
+            dst[0] = dst[1] = dst[2] = static_cast<uint8_t>(v * scale);
+          }
+          continue;
+        }
+        const int step = depth / 8;  // the high byte comes first
+        const uint8_t* s = src + static_cast<size_t>(x) * ch * step;
+        if (hd.colour == 3) {
+          if (3 * s[0] + 2 >= static_cast<int>(palette.size())) return false;
+          std::memcpy(dst, &palette[3 * s[0]], 3);
+        } else if (ch >= 3) {
+          dst[0] = s[0];
+          dst[1] = s[step];
+          dst[2] = s[2 * step];
+        } else {
+          dst[0] = dst[1] = dst[2] = s[0];
+        }
+      }
+    }
+    at += static_cast<size_t>(ph) * (stride + 1);
   }
   *height = h;
   *width = w;

@@ -175,7 +175,7 @@ int launch_fma_mix(const MixOperands<float>& ops, const float* blocks, int N, in
   const int R = fma_rows_per_block(H, W);
   const size_t smem = sizeof(float) * ((size_t)NOUT * NSRC * kFmaKC * kFmaNT +
                                        (size_t)R * W * (NSRC * kFmaKC + 1));
-  static size_t configured = 0;
+  static SmemLimit configured;
   cudaError_t e = allow_smem(rowtiled_mix_fma_kernel<NSRC, NOUT>, smem, &configured);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((C + kFmaNT - 1) / kFmaNT, (H + R - 1) / R, N);

@@ -194,7 +194,7 @@ int launch_fma(const void* x, const void* blocks, const void* hm, void* out, int
   const int R = rows_per_block(H, W);
   const int M = R * W;
   const size_t smem = sizeof(float) * ((size_t)W * W + 4 * (size_t)M * kXS + 4 * kKC * kNT);
-  static size_t configured = 0;
+  static SmemLimit configured;
   cudaError_t e = allow_smem(sfconv_freq_fwd_kernel, smem, &configured);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((C + kNT - 1) / kNT, (H + R - 1) / R, N);

@@ -337,7 +337,7 @@ inline cudaError_t run_dw(const SumOperands<__nv_bfloat16>& ops, float* dst, int
     if (ops.g[2 * q] != ops.g[2 * q + 1] ||
         ((ops.mirror_g >> (2 * q)) & 1u) != ((ops.mirror_g >> (2 * q + 1)) & 1u))
       return cudaErrorInvalidValue;
-  static size_t configured = 0;
+  static SmemLimit configured;
   cudaError_t e = allow_smem(dw_wgmma_kernel, kSumSmem, &configured);
   if (e != cudaSuccess) return e;
   const int tiles = (C + kSumWT - 1) / kSumWT;

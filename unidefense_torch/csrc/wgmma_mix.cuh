@@ -286,7 +286,7 @@ __device__ __forceinline__ void wgmma_mix(const WgmmaMix& a) {
 // file names its own kernel, so profiles tell K2, K3 and K4 apart).
 template <int BN, int MODE>
 int launch_wgmma_mix(void (*kernel)(WgmmaMix), const WgmmaMix& a, cudaStream_t s) {
-  static size_t configured = 0;  // one per instantiation, hence per kernel
+  static SmemLimit configured;  // one per instantiation, hence per kernel
   cudaError_t e = allow_smem(kernel, MixCfg<BN, MODE>::kSmem, &configured);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.C + BN - 1) / BN, (a.rows + a.R - 1) / a.R);

@@ -85,7 +85,7 @@ def decode_batch(blobs: Sequence[bytes], boxes: Optional[np.ndarray], out_h: int
     crop), or None. interp: cv2's code of the resize, 1 (bilinear) or 2
     (bicubic). Raises NotImplementedError for a frame that is neither JPEG
     nor PNG or another interp, and IOError for a frame that does not decode
-    (an interlaced PNG among them)."""
+    (a damaged stream). Interlaced (Adam7) PNGs decode."""
     if interp not in (INTER_LINEAR, INTER_CUBIC):
         raise NotImplementedError(f"interpolation {interp}: the host library resizes with 1 "
                                   "(bilinear) or 2 (bicubic)")

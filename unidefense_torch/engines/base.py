@@ -1,5 +1,5 @@
-"""AbstractEngine (unidefense_tpu/engines/base.py:49-723) on one device: the
-shared lifecycle of the task engines.
+"""AbstractEngine (unidefense_tpu/engines/base.py:49-723): the shared
+lifecycle of the task engines, on one device or one rank per device.
 
 Settings phases, seeding, the run directory and its logs, the two-pass
 train step (train/step.make_train_step, with the K1 device stage as its
@@ -14,8 +14,19 @@ in UE), and eval batch ``b`` from (seed, 777, b); so
 a resumed run draws what an uninterrupted one would, with no generator
 state saved.
 
-Not ported (ROADMAP.md: parallelism): the mesh, multi-host runs and
-``split_device_batch``; ``n_dev`` is 1.
+Data parallelism (``parallel.mesh``): ``n_dev`` is the world size and
+``self.device`` this rank's device. Each rank trains on its own sharded
+streams with synced BatchNorm and averaged gradients; rank r's train step
+``s`` draws from (seed, stream, s, r), JAX's ``fold_in(rng,
+axis_index)``, and a world of one keeps (seed, stream, s). Rank 0 alone
+prints, tees stdout, logs, snapshots the sources, draws the recon figure,
+traces the profiler and writes checkpoints (every rank enters the save);
+it picks the run id and creates the run directory, whose path the others
+receive. Validation is striped: rank r scores items r, r + world, ... with
+no collective, and the stripes are merged by ``all_gather_objects``. A
+preemption flag is agreed every ``preempt_sync_steps`` steps. Collectives
+are issued from the main thread only (the prefetch and decode threads
+issue none).
 """
 
 from __future__ import annotations
@@ -29,10 +40,11 @@ import numpy as np
 import torch
 
 from unidefense_torch.checkpoint import CheckpointManager
-from unidefense_torch.config import check_num_devices
-from unidefense_torch.device import DeviceLike, nhwc, resolve_device
+from unidefense_torch.device import DeviceLike, nhwc
 from unidefense_torch.models.convert import load_pretrained_extractor, load_unidefense_checkpoint
 from unidefense_torch.models.registry import build_model
+from unidefense_torch.parallel.mesh import (
+    all_gather_objects, broadcast_object, broadcast_state, init_data_parallel, sync_batchnorm)
 from unidefense_torch.train.optim import build_optimizer, build_plateau
 from unidefense_torch.train.step import create_train_state, make_eval_step, make_train_step
 from unidefense_torch.utils.logging import TrainLogger
@@ -58,9 +70,9 @@ class AbstractEngine:
         if stage not in ("Train", "Test"):
             raise ValueError(f"stage should be 'Train' or 'Test', got '{stage}'")
         self.num_devices = (config.get("config") or {}).get("num_devices")
-        check_num_devices(self.num_devices)
-        self.n_dev = 1
-        self.device = resolve_device(device)
+        self.dp = init_data_parallel(self.num_devices, device=device)
+        self.n_dev = self.dp.world
+        self.device = self.dp.device
         self.config = config
         self.stage = stage
         model_cfg = dict(config.get("model") or {})
@@ -105,15 +117,21 @@ class AbstractEngine:
         :meth:`_generator`, every draw of a step."""
         return seed
 
-    def _generator(self, stream: int, index: int) -> torch.Generator:
+    def _generator(self, stream: int, *index: int) -> torch.Generator:
         """The generator of draw ``index`` of ``stream``, on the engine's
         device (``fold_in(fold_in(base_rng, stream), index)``)."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(self.seed, stream, index))
+        gen.manual_seed(step_seed(self.seed, stream, *index))
         return gen
 
+    def _step_generator(self, stream: int, step: int) -> torch.Generator:
+        """Train step ``step``'s generator: (seed, stream, step), and this
+        rank's index after them in a world above one."""
+        return self._generator(stream, step, *((self.dp.rank,) if self.n_dev > 1 else ()))
+
     def _mprint(self, content: str = ""):
-        print(content)
+        if self.dp.primary:
+            print(content)
 
     def _initiated_settings(self, model_cfg, data_cfg, config_cfg):
         raise NotImplementedError
@@ -129,25 +147,36 @@ class AbstractEngine:
         (engine/forgery_engine.py:102-125)."""
         if self.debug:
             return
-        run_id = self.config_cfg.get(
-            "id", time.strftime("%Y-%m-%d...%H.%M.%S", time.localtime())
-        )
+        resume = bool(self.config_cfg.get("resume", False))
+        run_id, error = None, None
+        if self.dp.primary:
+            # rank 0's clock names the run, and rank 0 alone checks and
+            # creates its directory; the other ranks receive the id
+            run_id = self.config_cfg.get(
+                "id", time.strftime("%Y-%m-%d...%H.%M.%S", time.localtime())
+            )
+            run_dir = os.path.join("runs", self.model_name, run_id)
+            if not resume:
+                if os.path.exists(run_dir):
+                    error = f"Error: given id '{run_id}' already exists."
+                else:
+                    os.makedirs(run_dir, exist_ok=True)
+        run_id, error = broadcast_object((run_id, error), self.dp.group)
+        if error:
+            raise ValueError(error)  # on every rank
         self.run_id = run_id
         self.run_dir = os.path.join("runs", self.model_name, run_id)
-        resume = bool(self.config_cfg.get("resume", False))
         if not resume:
-            if os.path.exists(self.run_dir):
-                raise ValueError(f"Error: given id '{run_id}' already exists.")
-            os.makedirs(self.run_dir, exist_ok=True)
             self.dataset_config = options
-        print(f"Logging directory: {self.run_dir}.")
-        sys.stdout = Logger(os.path.join(self.run_dir, "records.txt"))
-        center_print("Train configurations begin.")
-        print({k: v for k, v in self.config.items() if k != "cfg_path"})
-        print(options)
-        center_print("Train configurations end.")
-        self._snapshot_sources()
-        self.ckpt = CheckpointManager(self.run_dir)
+        if self.dp.primary:
+            print(f"Logging directory: {self.run_dir}.")
+            sys.stdout = Logger(os.path.join(self.run_dir, "records.txt"))
+            center_print("Train configurations begin.")
+            print({k: v for k, v in self.config.items() if k != "cfg_path"})
+            print(options)
+            center_print("Train configurations end.")
+            self._snapshot_sources()
+        self.ckpt = CheckpointManager(self.run_dir, self.dp)
         self.logger = TrainLogger(
             self.run_dir,
             project="UniDefense",
@@ -156,6 +185,7 @@ class AbstractEngine:
             config={"model": self.model_cfg, "config": self.config_cfg,
                     "data": self.data_cfg, "dataset": options},
             offline=self.offline,
+            enabled=self.dp.primary,
         )
 
     def _setup_test_dir(self, options: dict):
@@ -166,11 +196,12 @@ class AbstractEngine:
         assert os.path.exists(self.run_dir), (
             f"Logging directory '{self.run_dir}' corrupted."
         )
-        print(f"Logging directory: {self.run_dir}.")
-        sys.stdout = Logger(os.path.join(self.run_dir, "test.txt"))
-        center_print("Test data configurations begins.")
-        print(options)
-        center_print("Test data configurations ends.")
+        if self.dp.primary:
+            print(f"Logging directory: {self.run_dir}.")
+            sys.stdout = Logger(os.path.join(self.run_dir, "test.txt"))
+            center_print("Test data configurations begins.")
+            print(options)
+            center_print("Test data configurations ends.")
 
     def _snapshot_sources(self):
         """Copy the engine and model source files and the config into the run
@@ -213,8 +244,10 @@ class AbstractEngine:
         """The train state on the device and the train/eval steps: the train
         step preprocesses with ``device_tf``, the eval step with ``eval_tf``
         (default ``device_tf``). train=False (the Test stage) builds no
-        train step."""
+        train step. Across ranks the train-mode BatchNorm statistics are
+        synced and the step averages gradients and metrics."""
         model = self._build_model()
+        sync_batchnorm(model, self.dp.group)
         self.tx, self.lr_schedule = build_optimizer(self.config_cfg)
         # metric-fed LR decay (scheduler name ReduceLROnPlateau); engines feed
         # their best-model selection metric each validation, in the
@@ -257,12 +290,19 @@ class AbstractEngine:
                     self.config_cfg.get("faithful_grad_accumulation", True)),
                 freq_norm=self.model_cfg.get("freq_norm", "ortho"),
                 preprocess=device_tf,
+                group=self.dp.group,
             )
         return model
 
     def _maybe_resume(self):
         """Real resume: restore the whole train state and the best-metric
-        bookkeeping."""
+        bookkeeping; then, across ranks, every rank takes rank 0's state
+        (the weight files and the checkpoint are the same files on every
+        rank, so this only guards against a rank that read otherwise)."""
+        self._restore_latest()
+        broadcast_state(self.state.model, self.state.opt_state, self.dp.group)
+
+    def _restore_latest(self):
         if not self.config_cfg.get("resume", False) or self.ckpt is None:
             return
         best = bool(self.config_cfg.get("resume_best", False))
@@ -356,8 +396,17 @@ class AbstractEngine:
 
     def _graceful_stop(self, cur_step: int) -> bool:
         """True if training should stop now; saves the latest checkpoint
-        first so the run resumes from exactly this step."""
-        if not getattr(self, "_preempt_requested", False):
+        first so the run resumes from exactly this step. Across ranks the
+        flags are gathered every ``config.preempt_sync_steps`` steps
+        (default 10) and a stop happens only there, where every rank sees
+        the same flags and enters the same save."""
+        stop = bool(getattr(self, "_preempt_requested", False))
+        if self.n_dev > 1:
+            sync_every = max(1, int(self.config_cfg.get("preempt_sync_steps", 10)))
+            if cur_step % sync_every:
+                return False
+            stop = any(f[0] for f in all_gather_objects(stop, group=self.dp.group))
+        if not stop:
             return False
         self._mprint(
             f"Preemption requested — saving latest checkpoint at step {cur_step}; "
@@ -389,7 +438,7 @@ class AbstractEngine:
         profile_steps, default 5) to write a Chrome trace of those steps
         into <run_dir>/profile/."""
         start = self.config_cfg.get("profile_start_step")
-        if start is None or self.run_dir is None:
+        if start is None or self.run_dir is None or not self.dp.primary:
             return
         start = int(start)
         n = max(1, int(self.config_cfg.get("profile_steps", 5)))
@@ -427,9 +476,21 @@ class AbstractEngine:
         raw_depth = self.data_cfg.get("prefetch_depth", 2)
         depth = max(1, int(2 if raw_depth is None else raw_depth))
         return BatchPrefetcher(
-            select=self._select_batch, load=self._load_batch, depth=depth,
+            select=self._select_batch, load=self._on_device(self._load_batch), depth=depth,
             num_steps=self.num_steps, start_step=self.start_step, workers=workers,
         )
+
+    def _on_device(self, fn):
+        """``fn`` run with this rank's card as the current CUDA device: a
+        decode thread's current device is cuda:0 otherwise, and the host
+        library's nvJPEG decodes on the current one."""
+        if self.device.type != "cuda" or self.device.index is None:
+            return fn
+
+        def run(*args, **kwargs):
+            with torch.cuda.device(self.device):
+                return fn(*args, **kwargs)
+        return run
 
     def _batchers(self) -> list:
         """The engine's training InfiniteBatchers (for resume fast-forward):
@@ -441,9 +502,14 @@ class AbstractEngine:
                 if hasattr(self, name)]
 
     def _stream_batch(self, per_dev: int) -> int:
-        """Per-process draw of a training stream: per_dev x n_dev samples
-        (one process, one device)."""
-        return per_dev * self.n_dev
+        """Per-process draw of a training stream: ``per_dev`` samples (one
+        device per process; the JAX package's per_dev x n_dev / nproc)."""
+        return per_dev
+
+    def _shard(self) -> dict:
+        """The samplers' shard of this rank: shard_id = rank, num_shards =
+        world."""
+        return {"shard_id": self.dp.rank, "num_shards": self.n_dev}
 
     def assemble_batch(self, images_real, labels_real, images_fake, labels_fake):
         """The step's batch on the device, real first, in one host-to-device
@@ -462,8 +528,12 @@ class AbstractEngine:
                       desc: str = "val") -> tuple[dict, dict]:
         """Score a whole split with fixed-size batches (the last padded by
         repetition), grouping frame probabilities by video
-        (engine/forgery_engine.py:336-360)."""
-        n = len(dataset)
+        (engine/forgery_engine.py:336-360). Across ranks, rank r scores the
+        stripe r, r + world, ... with its own eval step and no collective
+        (``gather_eval_output`` merges the stripes); batch b of a stripe
+        draws from (seed, 777, b)."""
+        stripe = range(self.dp.rank, len(dataset), self.n_dev)
+        n = len(stripe)
         prob_dict: dict[str, list] = {}
         tgt_dict: dict[str, list] = {}
         num_batches = -(-n // batch_size)
@@ -472,7 +542,7 @@ class AbstractEngine:
             """Batch b's items and every draw of its load, on this thread
             in batch order (``plan_item``), so a stage that draws (the
             distorted test's OneOf) draws as a serial run would."""
-            idx = list(range(b * batch_size, min(n, (b + 1) * batch_size)))
+            idx = list(stripe[b * batch_size:min(n, (b + 1) * batch_size)])
             n_valid = len(idx)
             while len(idx) < batch_size:
                 idx.append(idx[-1])
@@ -490,7 +560,8 @@ class AbstractEngine:
 
         lookahead = 2
         pool = ThreadPoolExecutor(max_workers=2)
-        futs = {b: pool.submit(_load, _select(b)) for b in range(min(lookahead, num_batches))}
+        load = self._on_device(_load)
+        futs = {b: pool.submit(load, _select(b)) for b in range(min(lookahead, num_batches))}
         model = self.state.model
         model.eval()
         try:
@@ -498,7 +569,7 @@ class AbstractEngine:
                 out, labels, n_valid = futs.pop(b).result()
                 nb = b + lookahead
                 if nb < num_batches:
-                    futs[nb] = pool.submit(_load, _select(nb))
+                    futs[nb] = pool.submit(load, _select(nb))
                 x = torch.from_numpy(out["images"]).to(self.device)
                 probs, _, _ = self.eval_step(x, self._generator(EVAL_STREAM, b))
                 probs = probs[:n_valid].cpu().numpy()
@@ -517,8 +588,8 @@ class AbstractEngine:
         """Save a recon-vs-input grid to the run dir every `every` steps
         (engine/abstract_engine.py:103-106, forgery_engine.py:379-386).
         Without matplotlib (GPU hosts may lack it) the figure is skipped
-        with a note, not the run."""
-        if self.run_dir is None or step % every != 0 or len(dataset) < 4:
+        with a note, not the run. Rank 0 alone draws it."""
+        if self.run_dir is None or step % every != 0 or len(dataset) < 4 or not self.dp.primary:
             return
         import importlib.util
 
@@ -555,11 +626,12 @@ class AbstractEngine:
 
             plt.close(fig)
 
-    @staticmethod
-    def gather_eval_output(prob_dict: dict, tgt_dict: dict) -> dict:
-        """Merge and aggregate to frame/video lists (one process:
-        engine/forgery_engine.py:373-390 without the all_gather)."""
-        return merge_video_dicts([prob_dict], [tgt_dict])
+    def gather_eval_output(self, prob_dict: dict, tgt_dict: dict) -> dict:
+        """Every rank's stripe, gathered (dist.all_gather_object,
+        engine/forgery_engine.py:373-390), merged and aggregated to
+        frame/video lists; every rank gets the same lists."""
+        gathered = all_gather_objects(prob_dict, tgt_dict, group=self.dp.group)
+        return merge_video_dicts([g[0] for g in gathered], [g[1] for g in gathered])
 
     def train(self):
         raise NotImplementedError

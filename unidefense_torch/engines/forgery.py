@@ -75,12 +75,14 @@ class ForgeryEngine(AbstractEngine):
         # partial chunk of each epoch is wrap-around padded to full size
         self.real_batcher = InfiniteBatcher(
             self.train_real_set,
-            EpochSampler(len(self.train_real_set), proc_bs, shuffle=True, pad_last=True),
+            EpochSampler(len(self.train_real_set), proc_bs, shuffle=True, pad_last=True,
+                         **self._shard()),
             load_kwargs={"crop": self.crop},
         )
         self.fake_batcher = InfiniteBatcher(
             self.train_fake_set,
-            EpochSampler(len(self.train_fake_set), proc_bs, shuffle=True, pad_last=True),
+            EpochSampler(len(self.train_fake_set), proc_bs, shuffle=True, pad_last=True,
+                         **self._shard()),
             load_kwargs={"crop": self.crop},
         )
         self.val_batch_size = data_cfg.get("val_batch_size", 64)
@@ -105,7 +107,7 @@ class ForgeryEngine(AbstractEngine):
         self._setup_test_dir(options)
         self._build_training(sum_real=1, sum_fake=1, num_steps=1,
                              device_tf=self.test_set.device_tf, train=False)
-        self.ckpt = CheckpointManager(self.run_dir)
+        self.ckpt = CheckpointManager(self.run_dir, self.dp)
         self.state, meta = self.ckpt.restore(self.state, best=True)
         self._mprint(
             f"Loaded best checkpoint: step {meta.get('best_step')}, "
@@ -126,7 +128,7 @@ class ForgeryEngine(AbstractEngine):
         timer = Timer()
         # every-step metric and accuracy sums on the device; one host read
         # at log boundaries (engine/forgery_engine.py:285-297)
-        train_meter = DeviceMetricAccumulator()
+        train_meter = DeviceMetricAccumulator(self.dp.group)
         prefetch = self._make_prefetcher()
         self._install_preemption_handler()
 
@@ -136,7 +138,7 @@ class ForgeryEngine(AbstractEngine):
                 cur_step += 1
                 self._profile_tick(cur_step)
                 self.state, metrics, cls_out = self.train_step(
-                    self.state, batch, self._generator(TRAIN_STREAM, cur_step)
+                    self.state, batch, self._step_generator(TRAIN_STREAM, cur_step)
                 )
                 train_meter.update(metrics, cls_out, batch["label"])
 

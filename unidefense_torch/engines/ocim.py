@@ -59,7 +59,7 @@ class OCIMEngine(AbstractEngine):
         bs = data_cfg["train_batch_size"]
         self.batchers = [
             InfiniteBatcher(sub, EpochSampler(len(sub), self._stream_batch(bs), shuffle=True,
-                                              drop_last=True),
+                                              drop_last=True, **self._shard()),
                             load_kwargs={"margin": self.train_margin, "crop": self.crop})
             for sub in self.train_set.datasets
         ]
@@ -85,7 +85,7 @@ class OCIMEngine(AbstractEngine):
         self._setup_test_dir(options)
         self._build_training(sum_real=1, sum_fake=1, num_steps=1,
                              device_tf=self.test_set.device_tf, train=False)
-        self.ckpt = CheckpointManager(self.run_dir)
+        self.ckpt = CheckpointManager(self.run_dir, self.dp)
         self.state, meta = self.ckpt.restore(self.state, best=True)
         self._mprint(
             f"Loaded best checkpoint: step {meta.get('best_step')}, "
@@ -108,7 +108,7 @@ class OCIMEngine(AbstractEngine):
 
     def train(self):
         timer = Timer()
-        train_meter = DeviceMetricAccumulator()
+        train_meter = DeviceMetricAccumulator(self.dp.group)
         prefetch = self._make_prefetcher()
         self._install_preemption_handler()
 
@@ -118,7 +118,7 @@ class OCIMEngine(AbstractEngine):
                 cur_step += 1
                 self._profile_tick(cur_step)
                 self.state, metrics, cls_out = self.train_step(
-                    self.state, batch, self._generator(OCIM_TRAIN_STREAM, cur_step)
+                    self.state, batch, self._step_generator(OCIM_TRAIN_STREAM, cur_step)
                 )
                 train_meter.update(metrics, cls_out, batch["label"])
                 if cur_step % self.log_steps == 0 or cur_step % self.val_steps == 0:

@@ -80,7 +80,7 @@ class UniAttackEngine(AbstractEngine):
                        "dataset_label_map": self.dlabel_map}
         self.real_batcher, self.fake_batcher = (
             InfiniteBatcher(ds, EpochSampler(len(ds), self._stream_batch(bs), shuffle=True,
-                                             drop_last=True),
+                                             drop_last=True, **self._shard()),
                             load_kwargs=load_kwargs)
             for ds in (self.train_real_set, self.train_fake_set))
         self.val_batch_size = data_cfg.get("val_batch_size", 64)
@@ -105,7 +105,7 @@ class UniAttackEngine(AbstractEngine):
         self._setup_test_dir(options)
         self._build_training(sum_real=1, sum_fake=1, num_steps=1,
                              device_tf=self.test_set.device_tf, train=False)
-        self.ckpt = CheckpointManager(self.run_dir)
+        self.ckpt = CheckpointManager(self.run_dir, self.dp)
         self.state, meta = self.ckpt.restore(self.state, best=True)
         self._mprint(
             f"Loaded best checkpoint: step {meta.get('best_step')}.\n"
@@ -136,7 +136,7 @@ class UniAttackEngine(AbstractEngine):
 
     def train(self):
         timer = Timer()
-        train_meter = DeviceMetricAccumulator()
+        train_meter = DeviceMetricAccumulator(self.dp.group)
         prefetch = self._make_prefetcher()
         self._install_preemption_handler()
 
@@ -146,7 +146,7 @@ class UniAttackEngine(AbstractEngine):
                 cur_step += 1
                 self._profile_tick(cur_step)
                 self.state, metrics, cls_out = self.train_step(
-                    self.state, batch, self._generator(UE_TRAIN_STREAM, cur_step)
+                    self.state, batch, self._step_generator(UE_TRAIN_STREAM, cur_step)
                 )
                 train_meter.update(metrics, cls_out, batch["label"])
                 if cur_step % self.log_steps == 0 or cur_step % self.val_steps == 0:

@@ -3,7 +3,9 @@ model on the card and scores uint8 RGB frames, K1 preprocessing included.
 Weights come from a port run's checkpoint (``from_run``), a reference
 ``{'model': state_dict}`` file (``from_torch_checkpoint``), a
 ``state_dict`` or a JAX model's variables; ``quantize="int8"`` holds the
->= 2-D weights as int8 with per-channel scales (ops/quant.py).
+>= 2-D weights as int8 with per-channel scales (ops/quant.py);
+``num_devices=N`` holds N replicas (unidefense_tpu/inference.py:36-39,85-91)
+and splits every batch over them.
 
 Example:
     pred = Predictor.from_run("runs/UDEB4/exp1", "UDEB4", input_size=380)
@@ -13,6 +15,8 @@ Example:
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import Iterable, Optional
 
 import numpy as np
@@ -21,10 +25,10 @@ import torch
 from unidefense_torch.data.transforms import DevicePipeline, resize_plain
 from unidefense_torch.device import DeviceLike, resolve_device
 from unidefense_torch.checkpoint import CheckpointManager
-from unidefense_torch.config import check_num_devices
 from unidefense_torch.models.convert import load_unidefense_checkpoint, state_dict_from_jax
 from unidefense_torch.models.registry import build_model
 from unidefense_torch.ops.quant import Int8Weights, param_bytes
+from unidefense_torch.parallel.mesh import check_num_devices
 from unidefense_torch.train.step import make_eval_step
 
 
@@ -41,8 +45,12 @@ class Predictor:
     see ``models/layers.SFConv``). ``quantize``: None or ``"int8"``, whose
     weights stay on the device as int8 and per-channel scales and are
     dequantized in ``dtype`` into the model's weights before each batch.
-    ``num_devices``: one device; more waits for ROADMAP.md's parallelism
-    item."""
+    ``num_devices``: N replicas of the model (int8 weights each their own),
+    on cuda:0..N-1 (on ``device`` N times for the CPU); each batch is split
+    into N equal chunks, every chunk launched on its replica before any is
+    waited on, and the probabilities come back in frame order.
+    ``batch_size`` must be a multiple of N, and N at most the cards of this
+    host."""
 
     def __init__(self, model_name: str, model_cfg: Optional[dict] = None,
                  state_dict: Optional[dict] = None, input_size: int = 256,
@@ -51,8 +59,14 @@ class Predictor:
                  device: DeviceLike = None, seed: int = 0,
                  v4_widths: Optional[Iterable[int]] = None, quantize: Optional[str] = None,
                  num_devices: Optional[int] = None):
-        check_num_devices(num_devices)
+        if num_devices and batch_size % num_devices:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by num_devices {num_devices}"
+            )
         self.device = resolve_device(device)
+        self.num_devices = num_devices
+        if num_devices and num_devices > 1:
+            check_num_devices(num_devices, self.device)
         self.model_name = model_name
         self.model_cfg = dict(model_cfg or {})
         self.input_size = input_size
@@ -65,21 +79,34 @@ class Predictor:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.device_tf = DevicePipeline(mean=mean, std=std, hflip_p=0.0)
-        self._eval = make_eval_step(self.model, preprocess=self.device_tf)
         self.quantize = quantize
         self._install()
 
+    def _replica_devices(self) -> list:
+        n = self.num_devices or 1
+        if n == 1:
+            return [self.device]
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(n)]
+        return [self.device] * n
+
     def _install(self) -> None:
-        """Quantize the model's current weights when ``quantize`` asks for
-        it. Checked here, not only in __init__, so that a constructor that
-        sets ``quantize`` after loading gets the same check."""
+        """The replicas of the model's current weights, each with its eval
+        step, quantized when ``quantize`` asks for it. Checked here, not only
+        in __init__, so that a constructor that sets ``quantize`` after
+        loading gets the same check."""
         if self.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {self.quantize!r} (use 'int8')")
-        self._int8 = Int8Weights(self.model) if self.quantize == "int8" else None
+        self._replicas = []
+        for i, dev in enumerate(self._replica_devices()):
+            model = self.model if i == 0 else copy.deepcopy(self.model).to(dev)
+            self._replicas.append((dev, make_eval_step(model, preprocess=self.device_tf),
+                                   Int8Weights(model) if self.quantize == "int8" else None))
+        _, self._eval, self._int8 = self._replicas[0]
 
     def param_bytes(self) -> int:
-        """Parameter bytes as stored (int8-aware; no buffers, as the JAX
-        package counts its ``params`` tree)."""
+        """Parameter bytes of one replica as stored (int8-aware; no buffers,
+        as the JAX package counts its ``params`` tree, replicated once)."""
         return param_bytes(self.model) if self._int8 is None else self._int8.nbytes()
 
     @classmethod
@@ -117,17 +144,26 @@ class Predictor:
         if frames_u8.shape[1:3] != (self.input_size, self.input_size):
             frames_u8 = resize_frames(frames_u8, self.input_size)
         bs = self.batch_size
-        probs = []
+        chunk = bs // len(self._replicas)
+        batches = []  # (each replica's probabilities, valid frames), read at the end
         for start in range(0, n, bs):
             idx = list(range(start, min(n, start + bs)))
             n_valid = len(idx)
             idx += [idx[-1]] * (bs - n_valid)
-            batch = torch.from_numpy(np.ascontiguousarray(frames_u8[idx])).to(self.device)
-            if self._int8 is not None:
-                self._int8.dequantize_into(self.dtype)
-            p, _, _ = self._eval(batch)
-            probs.append(p[:n_valid])
-        return torch.cat(probs).cpu().numpy() if probs else np.empty(0, np.float32)
+            frames = np.ascontiguousarray(frames_u8[idx])
+            parts = []
+            for r, (dev, eval_step, int8) in enumerate(self._replicas):
+                # the kernels launch on the current device: make it the replica's
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    batch = torch.from_numpy(frames[r * chunk:(r + 1) * chunk]).to(dev)
+                    if int8 is not None:
+                        int8.dequantize_into(self.dtype)
+                    parts.append(eval_step(batch)[0])
+            batches.append((parts, n_valid))
+        if not batches:
+            return np.empty(0, np.float32)
+        return torch.cat([torch.cat([p.cpu() for p in parts])[:n_valid]
+                          for parts, n_valid in batches]).numpy()
 
     def predict_video(self, frames_u8: np.ndarray) -> float:
         """Mean frame probability (the reference's video-level rule)."""

@@ -14,6 +14,7 @@ import math
 from typing import Iterable, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -21,6 +22,7 @@ from unidefense_torch.device import nchw, nhwc, optional_dtype
 from unidefense_torch.ops.resize import adaptive_avg_pool
 from unidefense_torch.ops.sfconv_cuda import sfconv_freq
 from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v4, uses_v4
+from unidefense_torch.parallel.mesh import all_reduce_sum
 
 Padding = Union[str, int]
 
@@ -63,9 +65,16 @@ class BatchNorm(nn.Module):
     Training normalises with the biased batch variance and moves the running
     statistics by ``momentum`` (torch convention: new = (1-m)*old + m*batch),
     the running variance with the unbiased estimate. ``frozen_bias`` keeps a
-    zero bias that is not trained, as the reference's bottleneck does. The
-    batch statistics are this process's own: SyncBatchNorm comes with data
-    parallelism."""
+    zero bias that is not trained, as the reference's bottleneck does.
+
+    ``group`` (set by ``parallel.sync_batchnorm``) syncs the training
+    statistics over the ranks, as ``axis_name`` does in JAX (layers.py:
+    116-134): the per-rank E[x] and E[x^2] are summed over the ranks in fp32
+    (a sum whose gradient is summed over the ranks too) and divided by the
+    world size, n counts every rank's frames, and var = max(E[x^2] -
+    E[x]^2, 0). Without a group the statistics are this process's own."""
+
+    group = None  # a torch.distributed process group, or None
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
                  frozen_bias: bool = False, dtype: Optional[torch.dtype] = None):
@@ -84,9 +93,16 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            n = xf.numel() // xf.shape[1]
+            if self.group is None:
+                var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            else:
+                world = dist.get_world_size(self.group)
+                moments = torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)])
+                mean, mean2 = all_reduce_sum(moments, self.group) / world
+                var = torch.clamp(mean2 - mean * mean, min=0.0)
+                n *= world
             with torch.no_grad():
-                n = xf.numel() // xf.shape[1]
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
                 self.running_var.mul_(1 - m).add_(m * n / max(n - 1, 1) * var)

@@ -18,6 +18,16 @@ With ``faithful_grad_accumulation`` (the reference zeroes gradients once per
 step) update 2 applies the SUM of the pass-1 and pass-2 gradients: the
 step simply does not clear ``.grad`` between the passes.
 
+With a process ``group`` (data parallelism, ``parallel.mesh``) each
+backward pass is followed by ``mean_gradients`` before its update, as JAX
+pmeans g1 and g2 (step.py:228-229,250-251), and the metrics are averaged
+over the ranks in one collective (:264-265); ``cls_out`` stays this
+rank's. Under faithful accumulation ``.grad`` holds mean(g1) + g2 of this
+rank when pass 2's backward ends, and its mean over the ranks, mean(g1) +
+mean(g2), is what update 2 applies: the sum is reduced, where JAX reduces
+g2 alone and then adds g1. The two differ by the rounding of one fp32
+addition per element (a few ulp of |g1| + |g2|).
+
 The model, its optimizer state, the step count and the plateau factor live
 in :class:`TrainState`; the step updates them in place. Randomness comes
 from one explicit ``torch.Generator``; the tests pass the flip mask and the
@@ -36,6 +46,7 @@ from unidefense_torch.device import DeviceLike, nchw, resolve_device
 from unidefense_torch.losses import (
     asymmetric_weighted_triplet, binary_cross_entropy_with_logits, cross_entropy, factorization,
     kl_div_log_target)
+from unidefense_torch.parallel.mesh import all_reduce_mean, mean_gradients
 from unidefense_torch.train.optim import Adam, OptState
 from unidefense_torch.train.perturb import PerturbDraws, perturb_input
 
@@ -95,6 +106,21 @@ def _clear_grads(model: nn.Module) -> None:
         p.grad = None
 
 
+def _sync_grads(model: nn.Module, group) -> None:
+    if group is not None:
+        mean_gradients(model, group)
+
+
+def _metrics(values: dict, group) -> dict:
+    """Detached metrics, averaged over the ranks of ``group`` in one
+    collective."""
+    metrics = {k: v.detach() for k, v in values.items()}
+    if group is None:
+        return metrics
+    mean = all_reduce_mean(torch.stack([v.float().reshape(()) for v in metrics.values()]), group)
+    return dict(zip(metrics, mean.unbind()))
+
+
 def _lambdas(config_cfg: dict, *names: str) -> list[float]:
     # the reference's .get(key, 1.) for every loss weight
     return [float(config_cfg.get(f"lambda_{n}", 1.0)) for n in names]
@@ -113,13 +139,16 @@ def _prepare(state: TrainState, batch: dict, generator, draws, preprocess):
 
 def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, sum_fake: int,
                     faithful_grad_accumulation: bool = True, preserve_color: bool = True,
-                    freq_norm: str = "ortho", preprocess: Optional[Callable] = None) -> Callable:
+                    freq_norm: str = "ortho", preprocess: Optional[Callable] = None,
+                    group=None) -> Callable:
     """The two-pass step ``train_step(state, batch, generator, draws=None)
     -> (state, metrics, cls_out)``. ``batch`` = {'image': NHWC (uint8 when
     ``preprocess`` is set, e.g. ``DevicePipeline(hflip_p=0.5)``), 'label':
-    (N,)}. ``config_cfg`` supplies the loss weights (lambda_*). The metrics
-    are 0-d tensors: pass 1's losses and total, pass 2's mask and
-    factorization losses; ``cls_out`` is pass 1's."""
+    (N,)}, this rank's. ``config_cfg`` supplies the loss weights (lambda_*).
+    The metrics are 0-d tensors: pass 1's losses and total, pass 2's mask
+    and factorization losses; ``cls_out`` is pass 1's. ``group``: the
+    process group gradients and metrics are averaged over (None: one
+    process)."""
     lam_mask, lam_triplet, lam_recons, lam_freq, lam_fac = _lambdas(
         config_cfg, "mask", "triplet", "recons", "freq", "fac")
     kl_switch_step = num_steps * 0.1
@@ -148,6 +177,7 @@ def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, s
         cls_out = out["cls_out"].detach()
         total1.backward()
         del out, ld
+        _sync_grads(model, group)
         tx.update(model, state.opt_state, state.lr_scale)
 
         # ---- pass 2 (perturbed) ----
@@ -177,23 +207,24 @@ def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, s
                   + lam_fac * fac_loss)
         total2.backward()
         del out, ld
+        _sync_grads(model, group)
         tx.update(model, state.opt_state, state.lr_scale)
 
         state.step = cur_step
         aux2 = {"freq_mask_loss": freq_mask_loss, "spat_mask_loss": spat_mask_loss,
                 "fac_loss": fac_loss}
-        metrics = {k: v.detach() for k, v in {**aux1, **aux2}.items()}
-        return state, metrics, cls_out
+        return state, _metrics({**aux1, **aux2}, group), cls_out
 
     return train_step
 
 
 def make_normal_train_step(tx: Adam, config_cfg: dict, sum_real: int, sum_fake: int,
-                           preprocess: Optional[Callable] = None) -> Callable:
+                           preprocess: Optional[Callable] = None, group=None) -> Callable:
     """Single-pass step (the reference's train_normal_model): one
     forward/backward/update with CE + triplet + real-only reconstruction
     losses, plus the aux_cls_loss / aux_spatial / aux_freq terms of models
-    that emit them. Same call as :func:`make_train_step`'s step."""
+    that emit them. Same call and ``group`` as :func:`make_train_step`'s
+    step (step.py:327-328,338-339)."""
     lam_triplet, lam_recons, lam_freq, lam_aux_cls = _lambdas(
         config_cfg, "triplet", "recons", "freq", "aux_cls")
 
@@ -216,9 +247,10 @@ def make_normal_train_step(tx: Adam, config_cfg: dict, sum_real: int, sum_fake: 
             total = total + 0.1 * lam_freq * ld["aux_freq"].mean()
         aux["total_loss"] = total
         total.backward()
+        _sync_grads(model, group)
         tx.update(model, state.opt_state, state.lr_scale)
         state.step += 1
-        return state, {k: v.detach() for k, v in aux.items()}, out["cls_out"].detach()
+        return state, _metrics(aux, group), out["cls_out"].detach()
 
     return train_step
 

@@ -73,9 +73,15 @@ class DeviceMetricAccumulator:
     then the count of correct classifications) that each step adds to
     asynchronously; ``snapshot()`` reads it in one transfer at log
     boundaries. Accuracy follows AccMeter: argmax, or sigmoid >= 0.5 for a
-    one-logit head."""
+    one-logit head.
 
-    def __init__(self):
+    With a process ``group`` (data parallelism) each snapshot sums the
+    vector and the frame count over the ranks in one collective, so the
+    accuracy is over every rank's frames, as the JAX engine's global
+    ``cls_out`` gives it, and the means are over the ranks."""
+
+    def __init__(self, group=None):
+        self.group = group
         self._keys = None
         self._sums = None
         self._count = 0
@@ -102,10 +108,20 @@ class DeviceMetricAccumulator:
         accuracy, 'count': steps accumulated}."""
         if self._keys is None:
             return {"means": {}, "acc": 0.0, "count": 0}
-        host = self._sums.cpu().tolist()
         n = max(float(self._count), 1.0)
+        if self.group is None:
+            host = self._sums.cpu().tolist()
+            total = float(self._total)
+        else:
+            import torch.distributed as dist
+
+            summed = torch.cat([self._sums, self._sums.new_tensor([float(self._total)])])
+            dist.all_reduce(summed, group=self.group)
+            host = summed.cpu().tolist()
+            total = host.pop()
+            n *= dist.get_world_size(self.group)
         return {
             "means": {k: v / n for k, v in zip(self._keys, host)},
-            "acc": host[-1] / max(float(self._total), 1.0),
+            "acc": host[-1] / max(total, 1.0),
             "count": self._count,
         }
