@@ -70,8 +70,16 @@ FE engine on two ranks, 4 steps: striped validation against one process,
 rank 0's checkpoints, the resume on one card bitwise); ``[dp-nccl]`` (the
 CLI's ``--num_devices 2`` over NCCL) and ``[serve-dp]``
 (``Predictor(num_devices=2)``) where the host has two cards, else a line
-that says they did not run. Any failure raises, so the exit code is not 0
-and no result line is printed.
+that says they did not run. The rest of training's configuration:
+``[train-opt]`` (UDR18 256^2 b30+30 bf16 with each of sgd, asgd, adamax,
+adadelta, adagrad and rmsprop, 3 steps each with their launches, ms and
+peak memory, ASGD's average against the parameters, and each optimizer's
+fp32 step on the card against the CPU), ``[train-remat]`` ([train] with
+``remat``, its launches, ms and peak memory beside [train]'s, and UDR18's
+fp32 step with remat against without) and ``[learn]`` (the port's
+learning check, ``unidefense_torch.tools.validate_learning``, 150 steps
+of UDR18 at 64^2 through the FE engine; best AUC above 0.95). Any failure
+raises, so the exit code is not 0 and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
 
@@ -130,6 +138,7 @@ SFCONV_SHAPES = {
     ("UDEB4", 256): [(64, 192, 1), (32, 336, 4), (16, 672, 6), (16, 960, 6), (8, 1632, 7)],
     ("UDR18", 256): [(64, 128, 3), (32, 256, 3), (16, 512, 2)],
     ("UDR18", 380): [(95, 128, 3), (48, 256, 3), (24, 512, 2)],
+    ("UDR18", 64): [(16, 128, 3), (8, 256, 3), (4, 512, 2)],  # [learn]
     ("UDR50", 256): [(64, 128, 1), (32, 128, 3), (32, 256, 1), (16, 256, 5), (16, 512, 1),
                      (8, 512, 1)],
     ("UDR50", 380): [(95, 128, 1), (48, 128, 3), (48, 256, 1), (24, 256, 5), (24, 512, 1),
@@ -253,8 +262,9 @@ def _k1_check(x, flip, dt, tol: float, what: str) -> tuple[float, bool]:
 def phase_k1(quick: bool, card: str) -> dict:
     """K1 against its plain version at the serving (b32) and training (b20)
     batches of 380² and 256², the FE engine's validation (b64) and test
-    (b96) batches of 380² and the OCIM engine's training (b60), validation
-    and test batches of 256², each flip pattern and both output dtypes; on a
+    (b96) batches of 380², the OCIM engine's training (b60), validation
+    and test batches of 256² and [learn]'s training (b8) and validation
+    (b16) batches of 64², each flip pattern and both output dtypes; on a
     contiguous view that is not 16-byte aligned (the scalar path); at small
     shapes with a partial last tile, a vector across rows, and no tile at
     all. Then the times at the four serving and training batches: cold (time_cold_ms, the one
@@ -282,8 +292,9 @@ def phase_k1(quick: bool, card: str) -> dict:
     batches = [(n, size) for size in (380, 256) for n in (32, 20)]
     # checked, not timed: the engines' batches, K1's tiles and grid follow
     # the batch; FE's and UE's validation (b64) and test (b96) at 380^2, OCIM's
-    # training (b60), validation and test at 256^2
-    checked = batches + [(64, 380), (96, 380), (60, 256), (64, 256), (96, 256)]
+    # training (b60), validation and test at 256^2, [learn]'s at 64^2
+    checked = batches + [(64, 380), (96, 380), (60, 256), (64, 256), (96, 256), (8, 64),
+                         (16, 64)]
     inputs = {}
     for n, size in checked:
         x = torch.randint(0, 256, (n, size, size, 3), generator=gen, device="cuda",
@@ -357,7 +368,7 @@ def sfconv_check_shapes() -> list[tuple[int, int, str]]:
     """(H=W, C, origin) of every shape the SFConv frequency kernels are
     checked at: UDEB4's at 380^2 and 256^2, then those of the per-op A/B
     tool that UDEB4 lacks (80^2/C192 and 12^2/C960), then UDR18's and
-    UDR50's (C = 128, 256, 512)."""
+    UDR50's (C = 128, 256, 512), [learn]'s UDR18 at 64^2 among them."""
     from unidefense_torch.tools.bench_sfconv import SHAPES_256, SHAPES_380
 
     shapes = {(hw, c): f"UDEB4 {res}^2" for (model, res), ss in SFCONV_SHAPES.items()
@@ -501,16 +512,20 @@ def sfconv_kernels() -> list[dict]:
     return [
         # also_batches: the engines' forwards, {(model, res): batches}: FE's
         # and UE's train (b20), validation (b64) and test (b96) of UDEB4,
-        # OCIM's train (b60), validation and test of UDR18
+        # OCIM's train (b60), validation and test of UDR18, [learn]'s train
+        # (b8) and validation (b16) of UDR18 at 64^2
         dict(name="K2", fn=k2.sfconv_freq, plain=sfconv_freq_spatial, batch=32, seed=SEED + 1,
-             also_batches={("UDEB4", 380): (20, 64, 96), ("UDR18", 256): (60, 64, 96)},
+             also_batches={("UDEB4", 380): (20, 64, 96), ("UDR18", 256): (60, 64, 96),
+                           ("UDR18", 64): (8, 16)},
              hilberts=1, streams=2, counts=fwd,
              workload="per UDEB4 forward at 380^2 b32",
              also={f"per {m} forward at {r}^2 b32": c for (m, r), c in udr.items()},
              parts=k2_parts, gemm=k2_gemm, check=split_check),
-        # also_batches: the OCIM engine's train backward (b60) of UDR18
+        # also_batches: the train backward of UDR18 in the OCIM engine (b60)
+        # and in [learn] (b8 at 64^2)
         dict(name="K2-bwd", fn=k2.sfconv_freq_bwd, plain=k2.sfconv_freq_bwd_plain, batch=20,
-             seed=SEED + 4, also_batches={("UDR18", 256): (60,)}, hilberts=1, streams=2,
+             seed=SEED + 4, also_batches={("UDR18", 256): (60,), ("UDR18", 64): (8,)},
+             hilberts=1, streams=2,
              counts=fwd,
              sums=lambda x, g: partial(k2._launch_dw, x, g),
              sums_plain=lambda x, g: partial(k2.weight_sums_plain, x, g), gemm=k2_bwd_gemm,
@@ -1139,7 +1154,26 @@ def _groups_of(model) -> dict:
     return groups
 
 
-TRAIN_RATES: dict = {}  # img/s of each [train*] phase of this run
+# img/s, p50 ms per step and peak GiB of each [train*] phase of this run
+TRAIN_READINGS: dict = {}
+
+
+def remat_sfconvs(model) -> int:
+    """SFConvs per forward inside the rematerialised blocks of ``model``
+    (each launches K2 once more in the backward's recompute): every MBConv
+    block of a remat EfficientNet, every block of a remat ResNetStage (the
+    extractors'; the embedders' SFConvs are not rematerialised, as in
+    JAX)."""
+    from unidefense_torch.models.efficientnet import EfficientNet
+    from unidefense_torch.models.layers import SFConv
+    from unidefense_torch.models.resnet import ResNetStage
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, (EfficientNet, ResNetStage)) and m.remat:
+            blocks = m._blocks if isinstance(m, EfficientNet) else m
+            n += sum(isinstance(s, SFConv) for b in blocks for s in b.modules())
+    return n
 
 
 def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
@@ -1153,13 +1187,14 @@ def _train_batch(n_real: int, n_fake: int, size: int, seed: int, device: str):
 
 
 def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozenset(),
-                tag: str = "train") -> tuple:
+                tag: str = "train", remat: bool = False) -> tuple:
     """The port's two-pass step of ``model`` at its resolution, 10 real + 10
     fake, bf16, its YAML's optimizer and drop rates, on a route: 2 warm-up
     steps, then 5 timed steps, each checked for its exact launches of K1,
     K2, K2-bwd, K3 and K3-bwd (two forwards, and two backwards that launch
-    K2 or K3 on the gradient and K2-bwd or K3-bwd). Returns the totals over
-    the 5 steps."""
+    K2 or K3 on the gradient and K2-bwd or K3-bwd; with ``remat``, K2 once
+    more per pass for each SFConv of a rematerialised block, its forward
+    recomputed in the backward). Returns the totals over the 5 steps."""
     import torch
 
     from unidefense_torch.data.transforms import DevicePipeline
@@ -1169,8 +1204,10 @@ def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
 
     spec = model_spec(model)
     res = spec["res"]
-    net = build_model(model, spec["model"], dtype=torch.bfloat16, v4_widths=v4_widths)
+    net = build_model(model, spec["model"], dtype=torch.bfloat16, v4_widths=v4_widths,
+                      remat=remat)
     net.load_state_dict(weights, strict=True)
+    recomputed = remat_sfconvs(net)
     tx, _ = build_optimizer(spec["config"])
     state = create_train_state(net, tx)
     step = make_train_step(tx, spec["config"], spec["num_steps"], 10, 10,
@@ -1182,7 +1219,7 @@ def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
     groups = _groups_of(state.model)
     before = {k: [p.detach().clone() for p in ps] for k, ps in groups.items()}
     per_k2, per_k3 = per_forward_launches(model, res, v4_widths)
-    want = (1, 4 * per_k2, 2 * per_k2, 4 * per_k3, 2 * per_k3)
+    want = (1, 4 * per_k2 + 2 * recomputed, 2 * per_k2, 4 * per_k3, 2 * per_k3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses, counts = [], [], (0,) * 5
@@ -1210,8 +1247,10 @@ def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
         raise AssertionError(f"parameter groups that did not move: {frozen}")
     still = sum(m.count(False) for m in moved.values())
     ms = statistics.median(times) * 1e3
-    TRAIN_RATES[tag] = 100 / sum(times)
+    TRAIN_READINGS[tag] = dict(rate=100 / sum(times), ms=ms, peak=peak)
     route = f"v4_widths {sorted(v4_widths)}" if v4_widths else "default route"
+    if remat:
+        route += f", remat: {recomputed} SFConvs recomputed per pass"
     opt = spec["config"]["optimizer"]
     log(f"[{tag}] {model} {res}^2 b10+10 bf16 two-pass step ({route}), {opt['name']} amsgrad "
         f"{opt['amsgrad']} wd {opt['weight_decay']}, drop_rate {spec['model']['drop_rate']}: "
@@ -1226,10 +1265,15 @@ def phase_train(card: str, weights: dict, model: str = "UDEB4", v4_widths=frozen
     return counts
 
 
-def _parity_step(weights: dict, device: str, v4_widths, model: str = "UDEB4") -> tuple[dict, dict]:
+def _parity_step(weights: dict, device: str, v4_widths, model: str = "UDEB4",
+                 optimizer: dict = None, remat: bool = False,
+                 lr_scale: float = None) -> tuple[dict, dict, dict]:
     """One deterministic two-pass step of ``model`` at 256^2, 2 real + 2
-    fake, fp32, from the given weights and fixed draws: (losses, gradient
-    norms)."""
+    fake, fp32, from the given weights and fixed draws, with its YAML's
+    optimizer or ``optimizer`` (a YAML ``optimizer:`` section), with or
+    without ``remat``, its updates scaled by ``lr_scale`` (the plateau
+    factor) where given: (losses, gradient norms, BatchNorm running
+    statistics and counts on the CPU)."""
     import dataclasses
 
     import torch
@@ -1246,19 +1290,38 @@ def _parity_step(weights: dict, device: str, v4_widths, model: str = "UDEB4") ->
     draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 7), 2, 2, (4, 256, 256, 3))
     draws = StepDraws(flip=torch.tensor([True, False, False, True]),
                       perturb=dataclasses.replace(draws, style=True, freq=True))
-    net = build_model(model, cfg, dtype=torch.float32, v4_widths=v4_widths)
+    net = build_model(model, cfg, dtype=torch.float32, v4_widths=v4_widths, remat=remat)
     net.load_state_dict(weights, strict=True)
-    tx, _ = build_optimizer(spec["config"])
+    config = dict(spec["config"], **({} if optimizer is None else {"optimizer": optimizer}))
+    tx, _ = build_optimizer(config)
     state = create_train_state(net, tx, device=device)
-    step = make_train_step(tx, spec["config"], spec["num_steps"], 2, 2,
+    state.lr_scale = lr_scale
+    step = make_train_step(tx, config, spec["num_steps"], 2, 2,
                            preprocess=DevicePipeline(hflip_p=0.5))
     _, metrics, _ = step(state, _train_batch(2, 2, 256, SEED + 8, device), None, draws)
     return ({k: float(v) for k, v in metrics.items()},
             {n: float(p.grad.norm()) for n, p in state.model.named_parameters()
-             if p.grad is not None})
+             if p.grad is not None},
+            {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+             if k.rsplit(".", 1)[-1] in ("running_mean", "running_var", "num_batches_tracked")})
 
 
-def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=None) -> None:
+def _parity_errors(ref: tuple, got: tuple) -> tuple:
+    """(loss rel err, its loss, gradient-norm err, its tensor, total |g|) of
+    one parity step against another: every loss relative to its own size;
+    each gradient norm against its own plus 1e-4 of the total norm (a
+    tensor whose gradient is rounding noise, a BatchNorm bias feeding a 1x1
+    conv and a train-mode BatchNorm, which cancels any shift, is judged
+    against the total)."""
+    (lc, gc), (lg, gg) = ref[:2], got[:2]
+    total = sum(v * v for v in gc.values()) ** 0.5
+    loss_err, loss_worst = max((abs(lg[k] - v) / max(abs(v), 1e-12), k) for k, v in lc.items())
+    grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
+    return loss_err, loss_worst, grad_err, worst, total
+
+
+def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=None,
+                       optimizer: dict = None) -> None:
     """One deterministic two-pass step of ``model`` at 256^2, 2 real + 2 fake,
     fp32 on the card against the same step on the CPU (default route, plain
     versions), from the same weights and draws: every loss, and each
@@ -1266,7 +1329,8 @@ def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=No
     the norm. The card runs it on each of ``routes`` ((tag, v4_widths)), by
     default the default route (K1, K2, K2-bwd in fp32, [train-parity]) and
     the K3 route {32, 16} ([train-parity-v4]), each checked for its launches
-    of K2, K2-bwd, K3 and K3-bwd."""
+    of K2, K2-bwd, K3 and K3-bwd. ``optimizer``: a YAML ``optimizer:``
+    section in place of the model YAML's, on both devices."""
     import torch
 
     if routes is None:
@@ -1274,31 +1338,222 @@ def phase_train_parity(card: str, weights: dict, model: str = "UDEB4", routes=No
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        lc, gc = _parity_step(weights, "cpu", frozenset(), model)
-        total = sum(v * v for v in gc.values()) ** 0.5
+        ref = _parity_step(weights, "cpu", frozenset(), model, optimizer)
         for tag, widths in routes:
             _reset_counts()
-            lg, gg = _parity_step(weights, "cuda", widths, model)
+            got = _parity_step(weights, "cuda", widths, model, optimizer)
             per_k2, per_k3 = per_forward_launches(model, 256, widths)
             want = (4 * per_k2, 2 * per_k2, 4 * per_k3, 2 * per_k3)
             if _route_counts()[1:] != want:
                 raise AssertionError(f"{tag}: K2, K2-bwd, K3, K3-bwd launches "
                                      f"{_route_counts()[1:]}; expected {want}")
-            loss_err, loss_worst = max((abs(lg[k] - v) / max(abs(v), 1e-12), k)
-                                       for k, v in lc.items())
-            # a tensor whose gradient is rounding noise (a BatchNorm bias feeding a
-            # 1x1 conv and a train-mode BatchNorm, which cancels any shift) is
-            # judged against the total norm, the rest against their own
-            grad_err, worst = max((abs(gg[n] - v) / (v + 1e-4 * total), n) for n, v in gc.items())
-            log(f"[{tag}] {model} 256^2 b2+2 fp32 two-pass step, cuda (v4_widths "
+            loss_err, loss_worst, grad_err, worst, total = _parity_errors(ref, got)
+            opt = "" if optimizer is None else f" {optimizer['name']}"
+            log(f"[{tag}] {model} 256^2 b2+2 fp32 two-pass step{opt}, cuda (v4_widths "
                 f"{sorted(widths)}, K2 {want[0]} K2-bwd {want[1]} K3 {want[2]} K3-bwd {want[3]}) "
                 f"vs cpu (default route): losses max rel err {loss_err:.3g} at {loss_worst} "
-                f"(tol 1e-3); {len(gc)} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
+                f"(tol 1e-3); {len(ref[1])} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
                 f"{grad_err:.3g} at {worst} (tol 1e-2); total |g| {total:.4g}; {card}")
             if not (loss_err <= 1e-3 and grad_err <= 1e-2):
-                raise AssertionError(f"{tag}: losses {lc} vs {lg}; worst gradient {worst}")
+                raise AssertionError(f"{tag}: losses {ref[0]} vs {got[0]}; worst gradient {worst}")
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+# [train-opt]: the optimizers no model YAML names, each at torch.optim's
+# default lr with model_udr18.yml's weight decay (sgd: momentum 0.9, 5e-4);
+# rmsprop at 1e-3 (Keras's default): its nu starts at 0 with no bias
+# correction, so its first update is 10 lr sign(g), and at 0.01 the b30+30
+# run diverged (total loss 1.69 -> 24.94 in 3 steps) and a 0.1 step on an
+# sf_coef whose gradient's sign is rounding noise put the fp32 card-vs-CPU
+# step 0.408 off that gradient's norm
+TRAIN_OPTIMIZERS = {
+    "sgd": {"name": "sgd", "lr": 0.01, "momentum": 0.9, "weight_decay": 5e-4},
+    "asgd": {"name": "asgd", "lr": 0.01, "weight_decay": 5e-5},
+    "adamax": {"name": "adamax", "lr": 2e-3, "weight_decay": 5e-5},
+    "adadelta": {"name": "adadelta", "lr": 1.0, "weight_decay": 5e-5},
+    "adagrad": {"name": "adagrad", "lr": 0.01, "weight_decay": 5e-5},
+    "rmsprop": {"name": "rmsprop", "lr": 1e-3, "weight_decay": 5e-5},
+}
+
+
+def phase_train_opt(card: str, weights: dict) -> tuple:
+    """[train-opt]: UDR18's two-pass step as model_udr18.yml runs it (256^2,
+    30 real + 30 fake, bf16, its drop rates) with each of TRAIN_OPTIMIZERS
+    in place of its AdamW: 3 steps each through ``make_train_step``, each
+    checked for its launches (K1 1, K2 32, K2-bwd 16) and timed between two
+    synchronises, and the peak memory; after them ASGD's
+    ``averaged_params`` finite and equal to the parameters (mu stays 1 for
+    t0 = 1e6 updates, so ax takes every update's parameters). Then each
+    optimizer's fp32 step at 256^2 b2+2 on the card against the CPU
+    ([train-parity-udr18]'s path and tolerances). Returns the launch totals
+    of the timed steps."""
+    import torch
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.train.optim import averaged_params, build_optimizer
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    spec = model_spec("UDR18")
+    res = spec["res"]
+    batch = _train_batch(30, 30, res, SEED + 9, "cuda")
+    per_k2, _ = per_forward_launches("UDR18", res, frozenset())
+    want = (1, 4 * per_k2, 2 * per_k2, 0, 0)
+    totals = (0,) * 5
+    for name, opt in TRAIN_OPTIMIZERS.items():
+        net = build_model("UDR18", spec["model"], dtype=torch.bfloat16)
+        net.load_state_dict(weights, strict=True)
+        config = dict(spec["config"], optimizer=opt)
+        tx, _ = build_optimizer(config)
+        state = create_train_state(net, tx)
+        step = make_train_step(tx, config, spec["num_steps"], 30, 30,
+                               preprocess=DevicePipeline(hflip_p=0.5))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(3):
+            _reset_counts()
+            t0 = time.perf_counter()
+            _, metrics, cls_out = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = _route_counts()
+            if got != want:
+                raise AssertionError(f"[train-opt] {name}: launches K1, K2, K2-bwd, K3, K3-bwd = "
+                                     f"{got}; expected {want}")
+            totals = tuple(a + b for a, b in zip(totals, got))
+            vals = {k: float(v) for k, v in metrics.items()}
+            if not all(v == v and abs(v) < float("inf") for v in vals.values()) or \
+                    not bool(torch.isfinite(cls_out).all()):
+                raise AssertionError(f"[train-opt] {name}: non-finite training output {vals}")
+            losses.append(round(vals["total_loss"], 4))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        note = ""
+        if name == "asgd":
+            ax = averaged_params(state.opt_state)
+            params = {n: p.detach() for n, p in state.model.named_parameters() if p.requires_grad}
+            if not (ax.keys() == params.keys()
+                    and all(bool(torch.isfinite(v).all()) for v in ax.values())
+                    and all(torch.equal(v, params[n]) for n, v in ax.items())):
+                raise AssertionError("[train-opt] asgd: averaged_params not finite or not the "
+                                     "parameters")
+            note = (f"; averaged_params: {len(ax)} tensors, finite, equal to the parameters bit "
+                    f"for bit (mu {state.opt_state.scalars['mu']})")
+        log(f"[train-opt] UDR18 {res}^2 b30+30 bf16 two-pass step, {opt}: 3 steps "
+            f"{[round(t, 2) for t in times]} ms, p50 {statistics.median(times):.2f} ms per step, "
+            f"{60 * 3 / (sum(times) / 1e3):.2f} img/s, peak memory {peak:.3f} GiB, state slots "
+            f"{list(state.opt_state.slots)}; launches per step K1 1 K2 {want[1]} K2-bwd "
+            f"{want[2]}; total loss {losses}"
+            f"{note}; {card}")
+        del net, state, step, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, opt in TRAIN_OPTIMIZERS.items():
+        phase_train_parity(card, weights, "UDR18", ((f"train-opt-parity-{name}", frozenset()),),
+                           optimizer=opt)
+    return totals
+
+
+def phase_train_remat(card: str, udeb4: dict, udr18: dict) -> tuple:
+    """[train-remat]: [train] (UDEB4 380^2 b10+10 bf16, default route) with
+    ``remat``: every MBConv block recomputed in the backward, so each step
+    launches K2 once more per SFConv and pass (K1 1, K2 96 + 48, K2-bwd 48);
+    its p50 ms per step and peak memory beside [train]'s. Then UDR18's fp32
+    step at 256^2 b2+2 with ``remat`` on the card against the same step
+    without it: losses and gradient norms within [train-parity]'s
+    tolerances and ``num_batches_tracked`` equal; and the two again with
+    their updates scaled by 0 (``lr_scale``), so that pass 2 runs on the
+    weights pass 1 ran on and the card's backward rounding cannot reach
+    the statistics through update 1: running statistics within 1e-6. (With
+    the updates they differ by that rounding, logged.) Returns the launch
+    totals of the 5 timed steps."""
+    import torch
+
+    from unidefense_torch.models.registry import build_model
+
+    counts = phase_train(card, udeb4, "UDEB4", tag="train-remat", remat=True)
+    base, now = TRAIN_READINGS["train"], TRAIN_READINGS["train-remat"]
+    log(f"[train-remat] beside [train]: p50 {now['ms']:.2f} against {base['ms']:.2f} ms per "
+        f"step ({now['ms'] / base['ms']:.3f}x), peak memory {now['peak']:.3f} against "
+        f"{base['peak']:.3f} GiB ({now['peak'] / base['peak']:.3f}x); {card}")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        plain = _parity_step(udr18, "cuda", frozenset(), "UDR18")
+        _reset_counts()
+        again = _parity_step(udr18, "cuda", frozenset(), "UDR18", remat=True)
+        got = _route_counts()
+        held = [_parity_step(udr18, "cuda", frozenset(), "UDR18", remat=r, lr_scale=0.0)
+                for r in (False, True)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    per_k2, _ = per_forward_launches("UDR18", 256, frozenset())
+    recomputed = remat_sfconvs(build_model("UDR18", model_spec("UDR18")["model"], remat=True))
+    want = (1, 4 * per_k2 + 2 * recomputed, 2 * per_k2, 0, 0)
+    if got != want:
+        raise AssertionError(f"[train-remat] UDR18 fp32 step: launches {got}; expected {want}")
+    loss_err, loss_worst, grad_err, worst, total = _parity_errors(plain, again)
+    counted = [k for k in plain[2] if k.endswith("num_batches_tracked")]
+
+    def stats_apart(a: dict, b: dict) -> float:
+        return max(float((b[k].double() - v.double()).abs().max())
+                   for k, v in a.items() if k not in counted)
+
+    stat_err, moved_err = stats_apart(held[0][2], held[1][2]), stats_apart(plain[2], again[2])
+    same_counts = all(torch.equal(b[2][k], a[2][k]) for a, b in ((plain, again), held)
+                      for k in counted)
+    stats = plain[2]
+    log(f"[train-remat] UDR18 256^2 b2+2 fp32 two-pass step with remat ({recomputed} SFConvs of "
+        f"the extractor's stages recomputed per pass; launches K1 {got[0]} K2 {got[1]} K2-bwd "
+        f"{got[2]}) vs without, on the card: losses max rel err {loss_err:.3g} at {loss_worst} "
+        f"(tol 1e-3); {len(plain[1])} gradient norms, max |d|g|| / (|g| + 1e-4 |all|) "
+        f"{grad_err:.3g} at {worst} (tol 1e-2); {len(stats) - len(counted)} running statistics "
+        f"max |d| {stat_err:.3g} with the updates scaled by 0 (tol 1e-6), {moved_err:.3g} with "
+        f"them (update 1's rounding); {len(counted)} num_batches_tracked equal: {same_counts}; "
+        f"{card}")
+    if not (loss_err <= 1e-3 and grad_err <= 1e-2 and stat_err <= 1e-6 and same_counts):
+        raise AssertionError(f"[train-remat] remat against no remat: losses {plain[0]} vs "
+                             f"{again[0]}; worst gradient {worst}")
+    return counts
+
+
+LEARN_STEPS = 150
+
+
+def phase_learn(card: str) -> tuple:
+    """[learn]: the port's learning check,
+    ``unidefense_torch.tools.validate_learning.run``, on the card: UDR18
+    through ``get_engine("FE")`` at 64^2, 4 real + 4 fake, AdamW amsgrad
+    2e-4, bf16, 150 steps validated at 75 and 150 (12 b16 batches each), on
+    smooth blobs with a faint checkerboard on the fakes. Fails unless the
+    best AUC is above 0.95 and every step and eval batch launched its K1,
+    K2 and K2-bwd (1, 32, 16 a step; 1, 8 a batch). Returns the launch
+    totals."""
+    from unidefense_torch.tools import validate_learning
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    best_auc, best_acc = validate_learning.run(steps=LEARN_STEPS, size=64, device="cuda")
+    seconds = time.perf_counter() - t0
+    got = _route_counts()
+    per_k2, _ = per_forward_launches("UDR18", 64, frozenset())
+    frames = 2 * 24 * 4  # the tree's real and fake videos of 4 frames
+    batches = 2 * -(-frames // 16)
+    want = (LEARN_STEPS + batches, LEARN_STEPS * 4 * per_k2 + batches * per_k2,
+            LEARN_STEPS * 2 * per_k2, 0, 0)
+    log(f"[learn] python -m unidefense_torch.tools.validate_learning on the card: UDR18 64^2 "
+        f"b4+4 bf16, {LEARN_STEPS} steps, validated at {LEARN_STEPS // 2} and {LEARN_STEPS} on "
+        f"{frames} frames: best AUC {best_auc:.4f} (needs > 0.95), best ACC {best_acc:.4f}; "
+        f"{seconds:.2f} s with the tree's writing; launches K1 {got[0]} K2 {got[1]} K2-bwd "
+        f"{got[2]} over {LEARN_STEPS} steps and {batches} eval batches; {card}")
+    if got != want:
+        raise AssertionError(f"[learn] launches {got}; expected {want}")
+    if not best_auc > 0.95:
+        raise AssertionError(f"[learn] the port failed to learn: best AUC {best_auc}")
+    return got
 
 
 # the synthetic FF++ tree of [engine-fe]: 4 real and 4 fake videos of 8
@@ -1450,8 +1705,10 @@ class EngineRuns:
     main() call the launch counts are set to 0 and read after; every train
     step is timed between two synchronises with its own launch deltas,
     every host decode (``finish_item``: blob reads, decode, the host
-    corruptions) and ``load_batch`` call and every ``score_dataset`` are
-    timed. Checks each run's device and launches: ``step_want`` per
+    corruptions), every ``_select_batch`` (a step's selections and plans,
+    on the consumer thread: the sampler, the margin and RandomResizedCrop
+    draws and the blob and header reads they need) and ``_load_batch``
+    call and every ``score_dataset`` are timed. Checks each run's device and launches: ``step_want`` per
     train step and ``eval_want`` per eval batch (K1, K2, K2-bwd, K3,
     K3-bwd); and that every scored frame has a probability in [0, 1]."""
 
@@ -1462,6 +1719,7 @@ class EngineRuns:
         self.steps: list = []    # (count deltas, start, end) of every train step
         self.loads: list = []    # (frames, seconds) of every finish_item
         self.batches: list = []  # seconds of every _load_batch (a step's streams)
+        self.selects: list = []  # seconds of every _select_batch (a step's plans)
         self.evals: list = []    # (batches, seconds) of every score_dataset
         self.runs: list = []     # (engine, seconds, steps, eval batches) of every main()
         self.totals = (0,) * 5
@@ -1475,7 +1733,9 @@ class EngineRuns:
 
         make_train_step, finish_item = base.make_train_step, self.dataset_cls.finish_item
         load_batch, score_dataset = self.engine_cls._load_batch, base.AbstractEngine.score_dataset
+        select_batch = self.engine_cls._select_batch
         steps, loads, batches, evals = self.steps, self.loads, self.batches, self.evals
+        selects = self.selects
 
         def timed_make_train_step(*args, **kwargs):
             step = make_train_step(*args, **kwargs)
@@ -1502,6 +1762,12 @@ class EngineRuns:
             batches.append(time.perf_counter() - t0)
             return out
 
+        def timed_select_batch(engine, cur_step):
+            t0 = time.perf_counter()
+            out = select_batch(engine, cur_step)
+            selects.append(time.perf_counter() - t0)
+            return out
+
         def timed_score_dataset(engine, dataset, batch_size, *args, **kwargs):
             t0 = time.perf_counter()
             out = score_dataset(engine, dataset, batch_size, *args, **kwargs)
@@ -1519,6 +1785,7 @@ class EngineRuns:
             base.make_train_step = timed_make_train_step
             self.dataset_cls.finish_item = timed_finish_item
             self.engine_cls._load_batch = timed_load_batch
+            self.engine_cls._select_batch = timed_select_batch
             base.AbstractEngine.score_dataset = timed_score_dataset
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1554,6 +1821,7 @@ class EngineRuns:
         finally:
             base.make_train_step, self.dataset_cls.finish_item = make_train_step, finish_item
             self.engine_cls._load_batch = load_batch
+            self.engine_cls._select_batch = select_batch
             base.AbstractEngine.score_dataset = score_dataset
             sys.stdout = stdout
             os.chdir(cwd)
@@ -1766,7 +2034,7 @@ def phase_engine_fe(card: str, weights: dict, root: str) -> tuple:
         f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
         f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
         f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
-        f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
+        f"starts) beside [train] {TRAIN_READINGS.get('train', {}).get('rate', float('nan')):.2f} img/s for the "
         f"bare step; host decode p50 {statistics.median(train_loads):.2f} ms per {bs}-frame "
         f"batch (320^2 -> 380^2, {len(train_loads)} batches); validation and test "
         f"{[round(v, 2) for v in val_ms[:4]]} ms per b64/b96 batch with its decode; peak "
@@ -1858,7 +2126,8 @@ class _Collectives:
 
 
 def _state_digest(model, opt_state=None) -> str:
-    """sha256 of the model's state_dict and the optimizer moments, in order."""
+    """sha256 of the model's state_dict and every slot of the optimizer
+    state, in order."""
     import hashlib
 
     import torch
@@ -1866,7 +2135,7 @@ def _state_digest(model, opt_state=None) -> str:
     h = hashlib.sha256()
     tensors = list(model.state_dict().values())
     if opt_state is not None:
-        tensors += [t for m in (opt_state.mu, opt_state.nu, opt_state.nu_max) for t in m.values()]
+        tensors += opt_state.tensors()
     for t in tensors:
         h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -2439,11 +2708,14 @@ def phase_engine_ocim(card: str, weights: dict) -> tuple:
             f"excluded: {r['step_rate']:.2f} img/s, p50 {statistics.median(r['step_ms']):.2f} ms "
             f"per step ({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
             f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
-            f"starts) beside [train-udr18] {TRAIN_RATES.get('train-udr18', float('nan')):.2f} "
-            f"img/s for the bare step at b10+10; host decode p50 "
+            f"starts) beside [train-udr18] {TRAIN_READINGS.get('train-udr18', {}).get('rate', float('nan')):.2f} "
+            f"img/s for the bare step at b10+10; plan p50 "
+            f"{statistics.median(runs.selects) * 1e3:.2f} ms per step on the consumer thread "
+            f"(the {n_streams} streams' selections, margins and RandomResizedCrop draws, "
+            f"FrameStore reads and header sizes; {len(runs.selects)} steps); host decode p50 "
             f"{statistics.median(runs.batches) * 1e3:.2f} ms per step ({n_streams} {bs}-frame stream "
-            f"loads: FrameStore reads, header sizes, 4p crop, RandomResizedCrop, bicubic "
-            f"480x360 crops -> 256^2; {len(runs.batches)} steps), "
+            f"loads on the prefetch threads: 4p crop, RandomResizedCrop, bicubic 480x360 crops "
+            f"-> 256^2; {len(runs.batches)} steps), "
             f"{statistics.median(val_loads):.2f} ms per b64 validation batch, "
             f"{statistics.median(test_loads):.2f} ms per b96 test batch (bilinear); validation "
             f"and test {[round(v, 2) for v in val_ms]} ms per batch with its decode; peak memory "
@@ -3030,10 +3302,13 @@ def phase_engine_ue(card: str, weights: dict) -> tuple:
             f"{statistics.median(r['step_ms']):.2f} ms per step "
             f"({[round(t, 2) for t in r['step_ms']]}); the loop, data waits included: "
             f"{r['loop_rate']:.2f} img/s ({[round(t, 2) for t in r['loop_ms']]} ms between step "
-            f"starts) beside [train] {TRAIN_RATES.get('train', float('nan')):.2f} img/s for the "
-            f"bare step; host decode p50 {statistics.median(runs.batches) * 1e3:.2f} ms per step "
-            f"(two {bs}-frame stream loads over six FrameStores: header sizes, RandomResizedCrop, "
-            f"bicubic 256^2-400x320 -> 380^2; {len(runs.batches)} steps); host OneOf "
+            f"starts) beside [train] {TRAIN_READINGS.get('train', {}).get('rate', float('nan')):.2f} img/s for the "
+            f"bare step; plan p50 {statistics.median(runs.selects) * 1e3:.2f} ms per step on the "
+            f"consumer thread (two streams' selections and RandomResizedCrop draws, blob reads "
+            f"and header sizes over six FrameStores; {len(runs.selects)} steps); host decode p50 "
+            f"{statistics.median(runs.batches) * 1e3:.2f} ms per step (two {bs}-frame stream "
+            f"loads on the prefetch threads: RandomResizedCrop, bicubic 256^2-400x320 -> 380^2; "
+            f"{len(runs.batches)} steps); host OneOf "
             f"{[round(s * 1e3, 2) for _, s, _ in oneof]} ms per b96 test batch after its decode "
             f"(branches JPEG/blur/noise/contrast/saturation "
             f"{[branches.count(c) for c in range(5)]}); ms per eval batch with its decode: "
@@ -3128,15 +3403,19 @@ def main() -> int:
         phase_parity(card, weights, model, tag=f"parity-{tag}")
         trained[f"train-{tag}"] = phase_train(card, weights, model, tag=f"train-{tag}")
         phase_train_parity(card, weights, model, ((f"train-parity-{tag}", frozenset()),))
+    trained["train-opt"] = phase_train_opt(card, udr["UDR18"])
+    trained["train-remat"] = phase_train_remat(card, udeb4, udr["UDR18"])
+    trained["learn"] = phase_learn(card)
     trained["dp-step"] = phase_dp_step(card, udr["UDR18"])
     trained["engine-ocim"] = phase_engine_ocim(card, udr["UDR18"])
     trained["engine-ue"] = phase_engine_ue(card, udeb4)
     phase_corrupt(card)
     k4_launches, k4_bwd_launches = phase_bench(card)
     # K1, K2 and K2-bwd: the launches of the default-route training paths,
-    # UDEB4's, UDR18's and UDR50's, 5 steps each, and of the engines' runs
-    # (their steps and eval batches: FE's five, OCIM's and UE's three), and
-    # of the data-parallel paths on both ranks ([dp-step]'s 3 steps,
+    # UDEB4's, UDR18's and UDR50's, 5 steps each, of [train-opt]'s 18 steps,
+    # [train-remat]'s 5 and [learn]'s run, of the engines' runs (their steps
+    # and eval batches: FE's five, OCIM's and UE's three), and of the
+    # data-parallel paths on both ranks ([dp-step]'s 3 steps,
     # [engine-fe-dp]'s run)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))

@@ -104,7 +104,10 @@ def test_faceforensics_index_matches_jax(ffpp, split, method, fpv):
 
 
 def _stream(mod, n, bs, shard, nshards, steps, start=1):
-    ds = type("DS", (), {"targets": list(range(n)), "__getitem__": lambda self, i: (f"f{i}", i)})()
+    # the port's batcher plans each load as it selects (``plan_item``); this
+    # dataset's plan is its items
+    ds = type("DS", (), {"targets": list(range(n)), "__getitem__": lambda self, i: (f"f{i}", i),
+                         "plan_item": lambda self, items, labels: items})()
     sampler = mod.EpochSampler(n, bs, shuffle=True, pad_last=True, shard_id=shard,
                                num_shards=nshards, seed=3)
     batcher = mod.InfiniteBatcher(ds, sampler)

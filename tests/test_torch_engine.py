@@ -151,8 +151,9 @@ def _assert_states_equal(a, b):
     for k in sa:
         np.testing.assert_array_equal(sa[k].numpy(), sb[k].numpy(), err_msg=k)
     assert a.step == b.step and a.opt_state.count == b.opt_state.count
+    assert list(a.opt_state.slots) == list(b.opt_state.slots) == ["mu", "nu", "nu_max"]
     for field in ("mu", "nu", "nu_max"):
-        fa, fb = getattr(a.opt_state, field), getattr(b.opt_state, field)
+        fa, fb = a.opt_state.slots[field], b.opt_state.slots[field]
         assert set(fa) == set(fb) and fa
         for k in fa:
             np.testing.assert_array_equal(fa[k].numpy(), fb[k].numpy(), err_msg=f"{field} {k}")

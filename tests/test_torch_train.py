@@ -162,8 +162,12 @@ def test_schedule_matches_jax(sched, warmup):
 
 
 def test_unported_optimizers_and_plateau():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        toptim.get_optimizer("sgd", toptim.build_lr_schedule(0.1))
+    """A name outside the eight raises as in JAX; ReduceLROnPlateau's factor
+    follows JAX's step for step."""
+    with pytest.raises(KeyError, match="not implemented"):
+        toptim.get_optimizer("lamb", toptim.build_lr_schedule(0.1))
+    with pytest.raises(KeyError, match="not implemented"):
+        joptim.get_optimizer("lamb", joptim.build_lr_schedule(0.1))
     cfg = {"optimizer": {"lr": 1e-3}, "scheduler": {"name": "ReduceLROnPlateau", "patience": 1,
                                                     "factor": 0.5}}
     ours, theirs = toptim.build_plateau(cfg, "max"), joptim.build_plateau(cfg, "max")

@@ -573,7 +573,8 @@ def test_streams_and_domain_map_match_jax(engines):
     assert got.dlabel_map == ref.dlabel_map and len(got.dlabel_map) == 3
     for step in (1, 2, 3):
         g_sel, r_sel = got._select_batch(step), ref._select_batch(step)
-        assert [s[0] for s in g_sel] == [s[0] for s in r_sel]
+        # the port plans each load as it selects: its selection holds the plan
+        assert [s[0]["path"] for s in g_sel] == [[i.split(" ")[0] for i in s[0]] for s in r_sel]
         g, r = got._load_batch(g_sel), ref._load_batch(r_sel)
         np.testing.assert_array_equal(g["label"].numpy(), [0, 0, 1, 1])
         np.testing.assert_array_equal(g["label"].numpy(), np.asarray(r["label"]))
@@ -684,7 +685,8 @@ def test_uniattack_engine_lifecycle(ua, tmp_path, monkeypatch, capsys):
     want = [straight._select_batch(s) for s in (1, 2, 3, 4)][2:]
     resumed._make_prefetcher()  # fast-forwards both streams to step 3
     for step, sels in zip((3, 4), want):
-        assert [s[0] for s in resumed._select_batch(step)] == [s[0] for s in sels], step
+        assert [s[0]["path"] for s in resumed._select_batch(step)] == \
+            [s[0]["path"] for s in sels], step
 
 
 @pytest.mark.parametrize("entry", ["engine", "main"])

@@ -44,10 +44,9 @@ def digest(tensors) -> str:
 
 
 def state_digest(state) -> str:
-    """Of the model's state_dict and the optimizer moments, in order."""
+    """Of the model's state_dict and the optimizer's slots, in order."""
     opt = state.opt_state
-    return digest(list(state.model.state_dict().values())
-                  + [t for m in (opt.mu, opt.nu, opt.nu_max) for t in m.values()])
+    return digest(list(state.model.state_dict().values()) + opt.tensors())
 
 
 # ------------------------------------------------------------ parallel layer
@@ -187,3 +186,62 @@ def fail_on_rank_one(out: str) -> None:
         raise RuntimeError("rank 1 fails on purpose")
     torch.distributed.barrier(group=dp.group)
     _save(out, dp, "unreachable")
+
+
+# ------------------------------------------------------------- train config
+
+def broadcast_states(out: str) -> None:
+    """A small model and an ASGD and an AdamW-amsgrad state that differ per
+    rank, two updates each, then ``broadcast_state``: saves each
+    optimizer's state digest before and after."""
+    from unidefense_torch.parallel import broadcast_state
+
+    dp = _join()
+    result = {}
+    for name, opt in (("asgd", {"name": "asgd", "lr": 0.01, "t0": 0}),
+                      ("adamw", {"name": "adamw", "lr": 0.01, "amsgrad": True})):
+        gen = torch.Generator().manual_seed(dp.rank)
+        model = torch.nn.Linear(3, 4)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen))
+        tx, _ = toptim.build_optimizer({"optimizer": opt})
+        opt_state = tx.init(model)
+        for _ in range(2):
+            for p in model.parameters():
+                p.grad = torch.randn(p.shape, generator=gen)
+            tx.update(model, opt_state)
+        state = type("S", (), {"model": model, "opt_state": opt_state})()
+        before = state_digest(state)
+        broadcast_state(model, opt_state, dp.group)
+        result[name] = (before, state_digest(state))
+    _save(out, dp, result)
+
+
+def remat_steps(out: str, state_dict, halves) -> None:
+    """UDR18 from ``state_dict`` with synced BatchNorm, two two-pass steps
+    (sgd momentum) on this rank's half from one generator seed, without and
+    then with remat; saves both state_dicts and the second's digest."""
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    dp = _join()
+    cfg = {"optimizer": {"name": "sgd", "lr": 0.01, "momentum": 0.9}}
+    result = {}
+    for remat in (False, True):
+        model = build_model("UDR18", {}, remat=remat)
+        model.load_state_dict(state_dict, strict=True)
+        sync_batchnorm(model, dp.group)
+        tx, _ = toptim.build_optimizer(cfg)
+        state = create_train_state(model, tx, device="cpu")
+        step = make_train_step(tx, cfg, 20, 1, 1, preprocess=DevicePipeline(hflip_p=0.5),
+                               group=dp.group)
+        gen = torch.Generator().manual_seed(5 + dp.rank)
+        batch = {"image": torch.from_numpy(halves[dp.rank]), "label": torch.tensor([0, 1])}
+        for _ in range(2):
+            step(state, batch, gen)
+        result["remat" if remat else "plain"] = {k: v.clone()
+                                                 for k, v in model.state_dict().items()}
+        result["digest"] = state_digest(state)
+    _save(out, dp, result)

@@ -1,15 +1,17 @@
 """Checkpoints with real resume (unidefense_tpu/checkpoint.py:26-171).
 
 A checkpoint carries the whole train state: the model's ``state_dict``
-(BatchNorm running statistics included), the optimizer's moments and count
-(``OptState``) and the step, plus the engine's best-metric bookkeeping in a
-JSON sidecar, so training resumes exactly.
+(BatchNorm running statistics included), the optimizer's state
+(``OptState``: its count, every per-tensor slot, ASGD's eta and mu) and
+the step, plus the engine's best-metric bookkeeping in a JSON sidecar, so
+training resumes exactly.
 
 Layout: ``<run_dir>/ckpt/{best,latest}/`` holding ``model.pt`` (the
-``state_dict`` and the step) and ``opt.pt`` (the ``OptState``), each a
-``torch.save``, beside ``{best,latest}.meta.json``. A save writes
-``<name>.tmp`` and its sidecar first, then removes the old checkpoint and
-renames the new one into place, in the JAX package's order. A crash while
+``state_dict`` and the step) and ``opt.pt`` (the ``OptState``'s
+``count``, ``slots`` and ``scalars``), each a ``torch.save``, beside
+``{best,latest}.meta.json``. A save writes ``<name>.tmp`` and its sidecar
+first, then removes the old checkpoint and renames the new one into place,
+in the JAX package's order. A crash while
 the files are written leaves the previous checkpoint whole. A kill between
 the removal and the last rename leaves no checkpoint of that name (a resume
 then starts fresh) or one without its sidecar (a resume then takes the step
@@ -46,6 +48,24 @@ def _read_meta(path: str) -> dict:
 
 def _host(tensors: dict) -> dict:
     return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+def _opt_state(saved: dict, target: OptState, path: str) -> OptState:
+    """The ``OptState`` of an ``opt.pt``, checked against the optimizer's
+    own: the same slots over the same parameters. A file written before
+    the slots (Adam's ``mu``, ``nu`` and ``nu_max`` at the top level, an
+    empty ``nu_max`` without amsgrad) reads as Adam's slots."""
+    if "slots" in saved:
+        slots, scalars = saved["slots"], saved.get("scalars", {})
+    else:
+        slots = {k: saved[k] for k in ("mu", "nu", "nu_max") if saved.get(k)}
+        scalars = {}
+    want = {k: sorted(v) for k, v in target.slots.items()}
+    if {k: sorted(v) for k, v in slots.items()} != want or set(scalars) != set(target.scalars):
+        raise ValueError(f"{path}/opt.pt holds optimizer slots {sorted(slots)} and numbers "
+                         f"{sorted(scalars)}; this run's optimizer keeps {sorted(want)} and "
+                         f"{sorted(target.scalars)}")
+    return OptState(count=int(saved["count"]), slots=slots, scalars=dict(scalars))
 
 
 class CheckpointManager:
@@ -87,8 +107,8 @@ class CheckpointManager:
         opt = state.opt_state
         torch.save({"model": _host(state.model.state_dict()), "step": state.step},
                    os.path.join(tmp, "model.pt"))
-        torch.save({"count": opt.count, "mu": _host(opt.mu), "nu": _host(opt.nu),
-                    "nu_max": _host(opt.nu_max)}, os.path.join(tmp, "opt.pt"))
+        torch.save({"count": opt.count, "slots": {k: _host(v) for k, v in opt.slots.items()},
+                    "scalars": dict(opt.scalars)}, os.path.join(tmp, "opt.pt"))
         with open(tmp + ".meta.json", "w") as f:
             json.dump(meta, f)
         if os.path.exists(path):
@@ -119,8 +139,7 @@ class CheckpointManager:
         opt = torch.load(os.path.join(path, "opt.pt"), map_location=device)
         target_state.model.load_state_dict(model["model"], strict=True)
         target_state.step = int(model["step"])
-        target_state.opt_state = OptState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"],
-                                          nu_max=opt["nu_max"])
+        target_state.opt_state = _opt_state(opt, target_state.opt_state, path)
         meta = _read_meta(path)
         if meta.get("lr_scale") is not None:
             target_state.lr_scale = float(meta["lr_scale"])

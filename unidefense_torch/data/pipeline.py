@@ -105,10 +105,13 @@ class InfiniteBatcher:
     (engine/forgery_engine.py:243-248 re-seeds with the current step).
 
     Split into two phases so the prefetcher can parallelize decode:
-    `select(cur_step)` advances the sampler and resolves index -> item
-    strings (cheap, called serially in step order, deterministic);
-    `load(selection)` decodes/crops/resizes (slow, safe to run on worker
-    threads: the host JPEG library releases the GIL)."""
+    `select(cur_step)` advances the sampler, resolves index -> item strings
+    and plans the load (``dataset.plan_item``: the batch's margin, the host
+    stage's draws, the header reads RandomResizedCrop needs); the
+    prefetcher calls it serially in step order, so every draw falls as in
+    a serial run. `load(selection)` reads, decodes, crops and resizes
+    (``dataset.finish_item``: slow, draws nothing, safe on worker threads:
+    the host JPEG library releases the GIL)."""
 
     def __init__(self, dataset, sampler: EpochSampler, load_kwargs: Optional[dict] = None):
         self.dataset = dataset
@@ -120,21 +123,24 @@ class InfiniteBatcher:
     def __len__(self):
         return len(self.sampler)
 
-    def select(self, cur_step: int):
+    def _indices(self, cur_step: int):
         if self._it is None or self._count >= len(self.sampler):
             self.sampler.set_epoch(cur_step)
             self._it = iter(self.sampler)
             self._count = 0
-        idx = next(self._it)
         self._count += 1
+        return next(self._it)
+
+    def select(self, cur_step: int):
+        idx = self._indices(cur_step)
         # datasets may override __getitem__ (e.g. WildDeepfake joins root)
         items = [self.dataset[i][0] for i in idx]
         labels = np.asarray([self.dataset.targets[i] for i in idx], np.int64)
-        return items, labels
+        return self.dataset.plan_item(items, labels, **self.load_kwargs), labels
 
     def load(self, selection):
-        items, labels = selection
-        out = self.dataset.load_item(items, labels, **self.load_kwargs)
+        plan, labels = selection
+        out = self.dataset.finish_item(plan)
         out["label"] = labels
         return out
 
@@ -142,12 +148,13 @@ class InfiniteBatcher:
         return self.load(self.select(cur_step))
 
     def fast_forward(self, to_step: int, from_step: int = 1):
-        """Replay (and discard) the selections for steps [from_step, to_step)
-        so a RESUMED run continues the exact data stream an uninterrupted run
-        would have seen at to_step. Selection is index arithmetic only
-        (~µs/step); no decode happens."""
+        """Replay (and discard) the sampler's selections for steps
+        [from_step, to_step) so a RESUMED run continues the exact data
+        stream an uninterrupted run would have seen at to_step. Index
+        arithmetic only (~µs/step): no plan is drawn and no blob read, so
+        the augmentation draws are not replayed (as in JAX)."""
         for s in range(from_step, to_step):
-            self.select(s)
+            self._indices(s)
 
 
 class BatchPrefetcher:
@@ -155,14 +162,12 @@ class BatchPrefetcher:
     threads, yielding in step order.
 
     Two-phase API: `select(step)` runs serially in the consumer thread in
-    ascending step order (keeps sampler state deterministic); `load(sel)`
-    runs on the pool. The single-callable form `produce(step)` is also
-    accepted (select becomes the identity) — use it only with workers=1
-    unless produce is thread-safe.
-
-    With workers > 1 the *order* in which concurrent loads draw from a
-    shared augmentation RNG is scheduling-dependent; pass workers=1 for
-    bit-deterministic input streams."""
+    ascending step order and makes every random draw of the step (the
+    sampler's, and the engines' plans of their loads); `load(sel)` runs on
+    the pool and draws nothing, so the batches are the same bit for bit
+    whatever the number of workers. The single-callable form
+    `produce(step)` is also accepted (select becomes the identity) — use it
+    only with workers=1 unless produce is thread-safe."""
 
     def __init__(self, produce: Optional[Callable[[int], dict]] = None,
                  depth: int = 2, num_steps: int = 0, start_step: int = 1,

@@ -236,7 +236,8 @@ class AbstractEngine:
             self.model_cfg = model_cfg
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed)
-            self.model = build_model(self.model_name, self.model_cfg, dtype=self.compute_dtype)
+            self.model = build_model(self.model_name, self.model_cfg, dtype=self.compute_dtype,
+                                     remat=bool(self.config_cfg.get("remat", False)))
         return self.model
 
     def _build_training(self, sum_real: int, sum_fake: int, num_steps: int, device_tf=None,

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unidefense_torch.models.layers import BatchNorm, Conv, SFConv, uniform
+from unidefense_torch.models.layers import BatchNorm, Conv, SFConv, remat_call, uniform
 
 # width, depth, resolution, dropout
 PARAMS = {
@@ -46,6 +46,11 @@ B0_BLOCKS = [
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention: 1 - 0.99
+
+
+def get_image_size(model_name: str) -> int:
+    """Native input resolution of a variant (model.py:401-413)."""
+    return PARAMS[model_name][2]
 
 
 def round_filters(filters: int, width_coefficient: float, divisor: int = 8) -> int:
@@ -158,14 +163,17 @@ class MBConvBlock(nn.Module):
 class EfficientNet(nn.Module):
     """Backbone without the top, with per-block access so wrappers can run
     delimiter-bounded block ranges. ``v4_widths``: the SFConv widths routed
-    to K3 (see ``layers.SFConv``)."""
+    to K3 (see ``layers.SFConv``). ``remat``: each MBConv block
+    rematerialised in training (``layers.remat_call``; efficientnet.py:
+    229-231's ``nn.remat``)."""
 
     def __init__(self, model_name: str = "efficientnet-b4", freq_norm: Optional[str] = "ortho",
                  drop_connect_rate: float = 0.2, dtype: Optional[torch.dtype] = None,
-                 v4_widths: Iterable[int] = ()):
+                 v4_widths: Iterable[int] = (), remat: bool = False):
         super().__init__()
         w = PARAMS[model_name][0]
         self.drop_connect_rate = drop_connect_rate
+        self.remat = remat
         self.specs = build_block_specs(model_name, freq_norm)
         stem = round_filters(32, w)
         self.head_filters = round_filters(1280, w)
@@ -185,7 +193,8 @@ class EfficientNet(nn.Module):
         branch at drop_connect_rate * idx / len(blocks)."""
         for idx in range(start, end):
             rate = self.drop_connect_rate * float(idx) / len(self._blocks)
-            x = self._blocks[idx](x, rate, generator)
+            block = self._blocks[idx]
+            x = remat_call(block, x, rate, generator) if self.remat else block(x, rate, generator)
         return x
 
     def head_forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ state dicts of ``models/convert.py`` load strictly.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Iterable, Optional, Union
 
 import torch
@@ -25,6 +27,59 @@ from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v4, uses_v4
 from unidefense_torch.parallel.mesh import all_reduce_sum
 
 Padding = Union[str, int]
+
+_recompute = threading.local()  # .on: this thread is recomputing a remat block
+
+
+def recomputing() -> bool:
+    """True inside :func:`remat_call`'s recompute (in the backward pass)."""
+    return getattr(_recompute, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute_context():
+    before = recomputing()
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recompute_context()
+
+
+def _replayed(generator: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    clone = torch.Generator(device=generator.device)
+    clone.set_state(state)
+    return clone
+
+
+def remat_call(block: nn.Module, x: torch.Tensor, *args):
+    """``block(x, *args)``, rematerialised (``nn.remat`` in JAX): in
+    training with grad enabled the block keeps no activations and runs its
+    forward again in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant); otherwise it is a plain call. The recompute changes
+    nothing the forward left behind: BatchNorm normalises with the
+    recomputed batch statistics without moving its running statistics
+    again (flax discards the recompute's ``batch_stats``), and a
+    ``torch.Generator`` among ``args`` is replayed from the state it had
+    before the block on a clone, so the recompute draws the forward's
+    masks and the caller's generator advances once."""
+    if not (block.training and torch.is_grad_enabled()):
+        return block(x, *args)
+    from torch.utils.checkpoint import checkpoint
+
+    states = [a.get_state() if isinstance(a, torch.Generator) else None for a in args]
+
+    def run(x):
+        call = args
+        if recomputing():
+            call = tuple(a if s is None else _replayed(a, s) for a, s in zip(args, states))
+        return block(x, *call)
+
+    return checkpoint(run, x, use_reentrant=False, context_fn=_remat_contexts)
 
 
 def same_pad(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
@@ -72,7 +127,11 @@ class BatchNorm(nn.Module):
     116-134): the per-rank E[x] and E[x^2] are summed over the ranks in fp32
     (a sum whose gradient is summed over the ranks too) and divided by the
     world size, n counts every rank's frames, and var = max(E[x^2] -
-    E[x]^2, 0). Without a group the statistics are this process's own."""
+    E[x]^2, 0). Without a group the statistics are this process's own.
+
+    The recompute of a rematerialised block (:func:`remat_call`) normalises
+    as the forward did and leaves the running statistics and
+    ``num_batches_tracked`` alone."""
 
     group = None  # a torch.distributed process group, or None
 
@@ -102,11 +161,12 @@ class BatchNorm(nn.Module):
                 mean, mean2 = all_reduce_sum(moments, self.group) / world
                 var = torch.clamp(mean2 - mean * mean, min=0.0)
                 n *= world
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * n / max(n - 1, 1) * var)
-                self.num_batches_tracked += 1
+            if not recomputing():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(m * n / max(n - 1, 1) * var)
+                    self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
         scale = (self.weight * torch.rsqrt(var + self.eps)).view(shape)

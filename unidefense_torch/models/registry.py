@@ -32,10 +32,12 @@ def load_model(name: str = "UDEB4"):
 
 
 def build_model(name: str, model_cfg: dict, dtype: Optional[torch.dtype] = None,
-                v4_widths: Optional[Iterable[int]] = None):
+                v4_widths: Optional[Iterable[int]] = None, remat: bool = False):
     """Construct a model (fp32 params, on the CPU) from `model:` kwargs.
     ``v4_widths``: the SFConv widths routed to K3; None reads them from
-    ``UD_SFCONV_V4``, here and nowhere else."""
+    ``UD_SFCONV_V4``, here and nowhere else. ``remat``: the backbone's
+    blocks rematerialised in training, for the models that take it (all
+    three; registry.py:45-46)."""
     cls = load_model(name)
     takes = inspect.signature(cls).parameters
     kwargs = {k: model_cfg[k] for k in _KEYS if k in model_cfg and k in takes}
@@ -43,4 +45,6 @@ def build_model(name: str, model_cfg: dict, dtype: Optional[torch.dtype] = None,
         kwargs["use_bias"] = model_cfg["bias"]
     if v4_widths is None:
         v4_widths = default_v4_widths()
+    if remat and "remat" in takes:
+        kwargs["remat"] = True
     return cls(dtype=dtype, v4_widths=v4_widths, **kwargs)

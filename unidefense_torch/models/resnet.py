@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unidefense_torch.device import nchw, nhwc, optional_dtype
-from unidefense_torch.models.layers import BatchNorm, Conv, SFConv, conv_or_sfconv
+from unidefense_torch.models.layers import BatchNorm, Conv, SFConv, conv_or_sfconv, remat_call
 from unidefense_torch.ops.resize import adaptive_avg_pool, max_pool
 
 
@@ -104,11 +104,12 @@ class Bottleneck(nn.Module):
 class ResNetStage(nn.Sequential):
     """One residual stage, blocks ``0..num_blocks-1`` (resnet.py:196-226):
     block 0 takes the stride, and a downsample where the stride is not 1 or
-    the channels change."""
+    the channels change. ``remat``: each block rematerialised in training
+    (``layers.remat_call``; resnet.py:211-213's ``nn.remat``)."""
 
     def __init__(self, block_cls: type, inplanes: int, planes: int, num_blocks: int,
                  stride: int, sfconv: bool, dtype: Optional[torch.dtype] = None,
-                 v4_widths: Iterable[int] = ()):
+                 v4_widths: Iterable[int] = (), remat: bool = False):
         out = planes * block_cls.expansion
         blocks = []
         for i in range(num_blocks):
@@ -117,6 +118,12 @@ class ResNetStage(nn.Sequential):
             blocks.append(block_cls(inplanes, planes, s, has_down, sfconv, dtype, v4_widths))
             inplanes = out
         super().__init__(*blocks)
+        self.remat = remat
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self:
+            x = remat_call(block, x) if self.remat else block(x)
+        return x
 
 
 ARCH = {"resnet18": (BasicBlock, [2, 2, 2, 2]), "resnet50": (Bottleneck, [3, 4, 6, 3])}
@@ -129,11 +136,13 @@ class ResNet(nn.Module):
     ``num_stages`` stages (``layer1``...), and with ``include_top`` a global
     average pool and the linear head ``fc`` (N(0, 0.01), as the JAX
     ``Classifier``). ``forward`` returns {'cls_out'}; ``stem`` and
-    ``stage(x, i)`` run the parts, for the extractors."""
+    ``stage(x, i)`` run the parts, for the extractors. ``remat``: every
+    stage's blocks rematerialised in training."""
 
     def __init__(self, arch: str = "resnet18", num_classes: int = 1000,
                  freq_norm: Optional[str] = None, dtype: Optional[torch.dtype] = None,
-                 v4_widths: Iterable[int] = (), num_stages: int = 4, include_top: bool = True):
+                 v4_widths: Iterable[int] = (), num_stages: int = 4, include_top: bool = True,
+                 remat: bool = False):
         super().__init__()
         if arch not in ARCH:
             raise KeyError(f"ResNet arch '{arch}' not found; available: {sorted(ARCH)}")
@@ -145,7 +154,7 @@ class ResNet(nn.Module):
         inplanes = 64
         for i in range(num_stages):
             stage = ResNetStage(block_cls, inplanes, CHANNELS[i], layers[i], 1 if i == 0 else 2,
-                                freq_norm is not None and i > 0, dtype, v4_widths)
+                                freq_norm is not None and i > 0, dtype, v4_widths, remat)
             self.add_module(f"layer{i + 1}", stage)
             inplanes = CHANNELS[i] * block_cls.expansion
         self.num_stages = num_stages
@@ -176,9 +185,9 @@ class ExtractorRes18(ResNet):
     the head, so neither is registered."""
 
     def __init__(self, freq_norm: Optional[str] = "ortho", dtype: Optional[torch.dtype] = None,
-                 v4_widths: Iterable[int] = ()):
+                 v4_widths: Iterable[int] = (), remat: bool = False):
         super().__init__("resnet18", freq_norm=freq_norm, dtype=dtype, v4_widths=v4_widths,
-                         num_stages=3, include_top=False)
+                         num_stages=3, include_top=False, remat=remat)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         p1 = self.stage(self.stem(x), 0)
@@ -195,9 +204,9 @@ class ExtractorRes50(ResNet):
     (resnet.py:307-330); no layer4 and no head, as in the JAX extractor."""
 
     def __init__(self, freq_norm: Optional[str] = "ortho", dtype: Optional[torch.dtype] = None,
-                 v4_widths: Iterable[int] = ()):
+                 v4_widths: Iterable[int] = (), remat: bool = False):
         super().__init__("resnet50", freq_norm=freq_norm, dtype=dtype, v4_widths=v4_widths,
-                         num_stages=3, include_top=False)
+                         num_stages=3, include_top=False, remat=remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _pool(self.stem(x))

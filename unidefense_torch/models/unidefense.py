@@ -85,19 +85,22 @@ class UniDefenseModelEb4(nn.Module):
     embedding dropout and the dropout after the bottleneck (``drop_rate``)
     draw their masks from ``generator``; with all rates 0 the forward is
     deterministic. ``v4_widths``: the SFConv widths routed to K3 (see
-    ``layers.SFConv``; default none)."""
+    ``layers.SFConv``; default none). ``remat``: each backbone block
+    rematerialised in training."""
 
     def __init__(self, extractor: str = "efficientnet-b4", num_classes: int = 2,
                  drop_rate: float = 0.2, drop_connect_rate: float = 0.2,
                  feat_drop_rate: float = 0.2, use_bias: bool = False, affine: bool = True,
                  delimiter: Optional[Sequence[int]] = None, freq_norm: str = "ortho",
-                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = (),
+                 remat: bool = False):
         super().__init__()
         self.freq_norm = freq_norm
         self.compute_dtype = dtype
         self.drop_rate = drop_rate
         self.feat_drop_rate = feat_drop_rate
-        self.backbone = EfficientNet(extractor, freq_norm, drop_connect_rate, dtype, v4_widths)
+        self.backbone = EfficientNet(extractor, freq_norm, drop_connect_rate, dtype, v4_widths,
+                                     remat)
         self.delimiter = list(delimiter or DELIMITER_DICT[extractor])
         specs = self.backbone.specs
         d = self.delimiter
@@ -167,7 +170,9 @@ class _UniDefenseResNet(nn.Module):
     classifier. ``triplet`` holds the pooled extractor features and the
     first decoder's output. Same ``forward`` contract as
     :class:`UniDefenseModelEb4`. ``extractor`` and ``mid_depth`` are the
-    JAX fields; each must name what the subclass builds."""
+    JAX fields; each must name what the subclass builds. ``remat``: each
+    block of the extractor's stages rematerialised in training (the JAX
+    models remat the extractor's ``ResNetStage``s, not the embedders)."""
 
     ARCH: str
     MID_DEPTH: int  # extractor channels, the decoder's input
@@ -176,7 +181,7 @@ class _UniDefenseResNet(nn.Module):
 
     def __init__(self, extractor: str, mid_depth: int, num_classes: int, drop_rate: float,
                  feat_drop_rate: float, use_bias: bool, affine: bool, freq_norm: str,
-                 dtype: Optional[torch.dtype], v4_widths: Iterable[int]):
+                 dtype: Optional[torch.dtype], v4_widths: Iterable[int], remat: bool = False):
         super().__init__()
         name = type(self).__name__
         if extractor != self.ARCH:
@@ -188,7 +193,7 @@ class _UniDefenseResNet(nn.Module):
         self.compute_dtype = dtype
         self.drop_rate = drop_rate
         self.feat_drop_rate = feat_drop_rate
-        self.build_blocks(freq_norm, use_bias, dtype, v4_widths)
+        self.build_blocks(freq_norm, use_bias, dtype, v4_widths, remat)
         kw = dict(bias=use_bias, affine=affine, use_swish=False, dtype=dtype)
         widths = (mid_depth, *self.DEC_FEATURES)
         for i, (c_in, c_out) in enumerate(zip(widths[:-1], widths[1:])):
@@ -202,7 +207,7 @@ class _UniDefenseResNet(nn.Module):
         self.bottleneck = BatchNorm(emb, frozen_bias=True, dtype=dtype)
         self.classifier = Classifier(emb, num_classes, dtype)
 
-    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths, remat) -> None:
         """Register ``extractor``, ``emb_block1`` and ``emb_block2``."""
         raise NotImplementedError
 
@@ -253,13 +258,14 @@ class UniDefenseModelRes18(_UniDefenseResNet):
     def __init__(self, extractor: str = "resnet18", mid_depth: int = 448, num_classes: int = 2,
                  drop_rate: float = 0.2, feat_drop_rate: float = 0.2, use_bias: bool = False,
                  affine: bool = True, freq_norm: str = "ortho",
-                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = (),
+                 remat: bool = False):
         super().__init__(extractor, mid_depth, num_classes, drop_rate, feat_drop_rate, use_bias,
-                         affine, freq_norm, dtype, v4_widths)
+                         affine, freq_norm, dtype, v4_widths, remat)
 
-    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths, remat) -> None:
         kw = dict(dtype=dtype, v4_widths=v4_widths)
-        self.extractor = ExtractorRes18(freq_norm, **kw)
+        self.extractor = ExtractorRes18(freq_norm, remat=remat, **kw)
         self.emb_block1 = EmbedderRes18Layer1(self.MID_DEPTH, use_bias, **kw)
         self.emb_block2 = EmbedderRes18Layer2(use_bias, **kw)
 
@@ -277,12 +283,13 @@ class UniDefenseModelRes50(_UniDefenseResNet):
     def __init__(self, extractor: str = "resnet50", mid_depth: int = 1024, num_classes: int = 2,
                  drop_rate: float = 0.2, feat_drop_rate: float = 0.2, use_bias: bool = False,
                  affine: bool = True, freq_norm: str = "ortho",
-                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = ()):
+                 dtype: Optional[torch.dtype] = None, v4_widths: Iterable[int] = (),
+                 remat: bool = False):
         super().__init__(extractor, mid_depth, num_classes, drop_rate, feat_drop_rate, use_bias,
-                         affine, freq_norm, dtype, v4_widths)
+                         affine, freq_norm, dtype, v4_widths, remat)
 
-    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths) -> None:
+    def build_blocks(self, freq_norm, use_bias, dtype, v4_widths, remat) -> None:
         kw = dict(dtype=dtype, v4_widths=v4_widths)
-        self.extractor = ExtractorRes50(freq_norm, **kw)
+        self.extractor = ExtractorRes50(freq_norm, remat=remat, **kw)
         self.emb_block1 = EmbedderRes50Layer1(self.MID_DEPTH, use_bias, **kw)
         self.emb_block2 = EmbedderRes50Layer2(use_bias, **kw)

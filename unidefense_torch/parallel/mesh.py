@@ -27,8 +27,10 @@ tensors gloo carries ``all_reduce`` and ``broadcast`` only, which is all the
 step, BatchNorm and the state broadcast use. Object gathers go through
 pickles (``all_gather_object``).
 
-Not ported (ROADMAP.md): the 2-D mode (``create_mesh_2d``,
-``state_shardings``, ``gspmd_train_step``) and the hybrid mesh.
+The 2-D mode (``create_mesh_2d``, ``state_shardings``,
+``gspmd_train_step``) and the hybrid mesh (mesh.py:124-221) are the one
+module of the JAX package the port does not have yet (ROADMAP.md: the 2-D
+mode and the hybrid mesh); the optimizers and ``remat`` are ported.
 """
 
 from __future__ import annotations
@@ -207,14 +209,15 @@ def all_reduce_mean(values: torch.Tensor, group: dist.ProcessGroup) -> torch.Ten
 @torch.no_grad()
 def broadcast_state(model: torch.nn.Module, opt_state=None,
                     group: Optional[dist.ProcessGroup] = None, src: int = 0) -> None:
-    """Rank ``src``'s parameters, buffers and optimizer moments on every
-    rank, in place. Nothing to do without a group."""
+    """Rank ``src``'s parameters, buffers and every per-tensor slot of the
+    optimizer state on every rank, in place. Nothing to do without a
+    group. (The state's count and ``scalars`` follow from the count, the
+    same on every rank.)"""
     if group is None:
         return
     tensors = list(model.state_dict().values())
     if opt_state is not None:
-        tensors += [t for moments in (opt_state.mu, opt_state.nu, opt_state.nu_max)
-                    for t in moments.values()]
+        tensors += opt_state.tensors()
     _flat_apply(tensors, lambda flat: dist.broadcast(flat, src=src, group=group))
 
 

@@ -47,7 +47,7 @@ from unidefense_torch.losses import (
     asymmetric_weighted_triplet, binary_cross_entropy_with_logits, cross_entropy, factorization,
     kl_div_log_target)
 from unidefense_torch.parallel.mesh import all_reduce_mean, mean_gradients
-from unidefense_torch.train.optim import Adam, OptState
+from unidefense_torch.train.optim import Optimizer, OptState
 from unidefense_torch.train.perturb import PerturbDraws, perturb_input
 
 
@@ -68,7 +68,7 @@ class StepDraws:
     perturb: Optional[PerturbDraws] = None
 
 
-def create_train_state(model: nn.Module, tx: Adam, device: DeviceLike = None) -> TrainState:
+def create_train_state(model: nn.Module, tx: Optimizer, device: DeviceLike = None) -> TrainState:
     """Move ``model`` to the device (``cuda`` unless told otherwise, in
     channels_last) and start its optimizer state."""
     model = model.to(resolve_device(device), memory_format=torch.channels_last)
@@ -137,7 +137,7 @@ def _prepare(state: TrainState, batch: dict, generator, draws, preprocess):
     return x.contiguous(), labels
 
 
-def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, sum_fake: int,
+def make_train_step(tx: Optimizer, config_cfg: dict, num_steps: int, sum_real: int, sum_fake: int,
                     faithful_grad_accumulation: bool = True, preserve_color: bool = True,
                     freq_norm: str = "ortho", preprocess: Optional[Callable] = None,
                     group=None) -> Callable:
@@ -218,7 +218,7 @@ def make_train_step(tx: Adam, config_cfg: dict, num_steps: int, sum_real: int, s
     return train_step
 
 
-def make_normal_train_step(tx: Adam, config_cfg: dict, sum_real: int, sum_fake: int,
+def make_normal_train_step(tx: Optimizer, config_cfg: dict, sum_real: int, sum_fake: int,
                            preprocess: Optional[Callable] = None, group=None) -> Callable:
     """Single-pass step (the reference's train_normal_model): one
     forward/backward/update with CE + triplet + real-only reconstruction

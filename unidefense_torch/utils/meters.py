@@ -1,12 +1,57 @@
-"""Training meters and timers (unidefense_tpu/utils/meters.py:75-187;
+"""Training meters and timers (unidefense_tpu/utils/meters.py:36-187;
 utils/misc.py:25-117 of the reference)."""
 
 from __future__ import annotations
 
+import os
+import pickle
 import sys
 import time
 
+import numpy as np
 import torch
+
+
+class AUCMeter:
+    """Accumulates (score, label) pairs; their AUC and an ROC-curve dump
+    (utils/misc.py:74-97), on the port's own ``utils.metrics.roc_curve`` and
+    ``auc`` (sklearn's, with no sklearn)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.score = None
+        self.true = None
+
+    def update(self, score, true):
+        score = np.asarray(score).reshape(-1)
+        true = np.asarray(true).reshape(-1)
+        self.score = score if self.score is None else np.concatenate([self.score, score])
+        self.true = true if self.true is None else np.concatenate([self.true, true])
+
+    def mean_auc(self) -> float:
+        """sklearn's ``roc_auc_score`` of the pairs: the area under the ROC
+        with label 1 positive."""
+        from unidefense_torch.utils.metrics import auc, roc_curve
+
+        fpr, tpr, _ = roc_curve(self.true, self.score, pos_label=1)
+        return auc(fpr, tpr)
+
+    def curve(self, prefix: str) -> None:
+        """Print the EER and its threshold, and pickle [fpr, tpr,
+        thresholds] to ``<prefix>/roc_curve.pickle``."""
+        from scipy.interpolate import interp1d
+        from scipy.optimize import brentq
+
+        from unidefense_torch.utils.metrics import roc_curve
+
+        fpr, tpr, thresholds = roc_curve(self.true, self.score, pos_label=1)
+        eer = brentq(lambda x: 1.0 - x - interp1d(fpr, tpr)(x), 0.0, 1.0)
+        thresh = interp1d(fpr, thresholds)(eer)
+        print(f"# EER: {eer:.4f}(thresh: {float(thresh):.4f})")
+        with open(os.path.join(prefix, "roc_curve.pickle"), "wb") as f:
+            pickle.dump([fpr, tpr, thresholds], f)
 
 
 class AverageMeter:
