@@ -78,7 +78,11 @@ fp32 step on the card against the CPU), ``[train-remat]`` ([train] with
 ``remat``, its launches, ms and peak memory beside [train]'s, and UDR18's
 fp32 step with remat against without) and ``[learn]`` (the port's
 learning check, ``unidefense_torch.tools.validate_learning``, 150 steps
-of UDR18 at 64^2 through the FE engine; best AUC above 0.95). Any failure
+of UDR18 at 64^2 through the FE engine; best AUC above 0.95). The 2-D
+('data', 'model') mode, ``[mesh2d]``: UDR18 256^2 global b10+10, the 1x1
+mesh's bf16 steps bit for bit make_train_step's on one card, and where the
+host has two cards or more a 1x2 or 2x2 mesh over NCCL, a rank per card,
+held against one card's step (see ``phase_mesh2d``). Any failure
 raises, so the exit code is not 0 and no result line is printed.
 The last line is the result object; the line before it the kernel table.
 """
@@ -2128,14 +2132,19 @@ class _Collectives:
 def _state_digest(model, opt_state=None) -> str:
     """sha256 of the model's state_dict and every slot of the optimizer
     state, in order."""
+    tensors = list(model.state_dict().values())
+    if opt_state is not None:
+        tensors += opt_state.tensors()
+    return _state_digest_of(tensors)
+
+
+def _state_digest_of(tensors) -> str:
+    """sha256 of the bytes of ``tensors``, in order."""
     import hashlib
 
     import torch
 
     h = hashlib.sha256()
-    tensors = list(model.state_dict().values())
-    if opt_state is not None:
-        tensors += opt_state.tensors()
     for t in tensors:
         h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -2545,6 +2554,352 @@ def phase_dp_cards(card: str, root: str, weights: dict) -> None:
     log(f"[serve-dp] Predictor(num_devices=2) UDEB4 380^2 b32 bf16 (b16 per card) against one "
         f"device on 64 frames: max |dprob| {err:.3g} (tol 2e-2); {ms:.2f} ms for the 64 frames "
         f"(one sample); {card}")
+
+
+# [mesh2d]: the 2-D ('data', 'model') mode. The sharded legs need a card per
+# rank: NCCL refuses two ranks on one device and gloo gathers no CUDA tensor.
+MESH_MP = 2
+MESH_TIMEOUT_S = 900
+
+
+def _mesh_state(weights: dict, dtype, zero_drop: bool, mesh=None, group=None, rows=(10, 10)):
+    """UDR18 at 256^2 from ``weights`` in ``dtype`` with model_udr18.yml's
+    optimizer (drop rates 0 with ``zero_drop``), on this process's card, and
+    the two-pass step over ``rows`` (real, fake): with ``mesh``, the
+    global-batch step of the 2-D mode wrapped by ``gspmd_train_step``
+    (weights of 65,536 elements or more sharded over 'model'); with
+    ``group``, the 1-D mode's step, BatchNorms synced over it."""
+    import torch
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.parallel import sync_batchnorm
+    from unidefense_torch.parallel.mesh import gspmd_train_step
+    from unidefense_torch.train.optim import build_optimizer
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    spec = model_spec("UDR18")
+    cfg = dict(spec["model"], drop_rate=0.0, feat_drop_rate=0.0) if zero_drop else spec["model"]
+    net = build_model("UDR18", cfg, dtype=dtype)
+    net.load_state_dict(weights, strict=True)
+    tx, _ = build_optimizer(spec["config"])
+    state = create_train_state(net, tx, device=f"cuda:{torch.cuda.current_device()}")
+    sync_batchnorm(state.model, group)
+    step = make_train_step(tx, spec["config"], spec["num_steps"], *rows,
+                           preprocess=DevicePipeline(hflip_p=0.5), group=group, mesh=mesh)
+    if mesh is not None:
+        step = gspmd_train_step(step, mesh, state)
+    return state, step
+
+
+class _Gathers(_Collectives):
+    """[dp-step]'s all_reduce count, the all_gather calls (NCCL's
+    all_gather_into_tensor, gloo's all_gather) and the bytes they gather
+    (the output's size), and the broadcasts and their bytes, while
+    installed."""
+
+    def __init__(self):
+        super().__init__()
+        self.gathers = self.gathered = self.casts = self.cast = 0
+        ag, agt, bc = self._dist.all_gather, self._dist.all_gather_into_tensor, self._dist.broadcast
+
+        def broadcast(tensor, *args, **kwargs):
+            self.casts += 1
+            self.cast += tensor.numel() * tensor.element_size()
+            return bc(tensor, *args, **kwargs)
+
+        def into_tensor(out, tensor, *args, **kwargs):
+            self.gathers += 1
+            self.gathered += out.numel() * out.element_size()
+            return agt(out, tensor, *args, **kwargs)
+
+        def into_list(parts, tensor, *args, **kwargs):
+            self.gathers += 1
+            self.gathered += sum(t.numel() * t.element_size() for t in parts)
+            return ag(parts, tensor, *args, **kwargs)
+        self._dist.all_gather_into_tensor, self._dist.all_gather = into_tensor, into_list
+        self._dist.broadcast = broadcast
+
+    def read_all(self) -> dict:
+        out = {"all_gather": (self.gathers, self.gathered), "all_reduce": self.read(),
+               "broadcast": (self.casts, self.cast)}
+        self.gathers = self.gathered = self.casts = self.cast = 0
+        return out
+
+
+def _grad_norms(model, mesh) -> dict:
+    """Each parameter's gradient norm, a sharded one's over its slices."""
+    import torch
+    import torch.distributed as dist
+
+    sharded = getattr(model, "sharded", None)
+    norms = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        sq = p.grad.float().pow(2).sum()
+        if sharded is not None and sharded.plan["params"][name] is not None:
+            dist.all_reduce(sq, group=mesh.model_group)
+        norms[name] = float(torch.sqrt(sq))
+    return norms
+
+
+def _mesh2d_rank(out: str, weights: dict, batch: dict, draws, mp: int) -> None:
+    """[mesh2d] on one rank of a (world / mp, mp) mesh over NCCL: (1) one
+    fp32 step (TF32 off, drop rates 0) on this rank's rows of the global
+    batch with the global draws; (2) the 1-D mode's step on a real-first
+    batch of as many rows, 2 steps bf16, for its peak memory; (3) 3 bf16
+    steps of the 2-D mode with the YAML's drop rates from one generator
+    seed. Saves the launches, the collectives, the gathered state's digest,
+    the peaks and, from rank 0, the fp32 step's metrics, gradient norms and
+    gathered state."""
+    import torch
+    import torch.distributed as dist
+
+    from unidefense_torch.parallel.mesh import create_mesh_2d, gather_state
+
+    mesh = create_mesh_2d(None, model_parallel=mp, device="cuda")
+    counts = _Gathers()
+    n = len(batch["label"])
+    rows = mesh.rows(n)
+    mine = {k: v[rows].to(mesh.device) for k, v in batch.items()}
+    result = {"place": (mesh.data_index, mesh.model_index), "rows": (rows.start, rows.stop)}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        state, step = _mesh_state(weights, torch.float32, True, mesh)
+        counts.read_all()
+        _reset_counts()
+        _, metrics, cls_out = step(state, mine, None, draws)
+        torch.cuda.synchronize()
+        result["exact"] = dict(counts=_route_counts(), collectives=counts.read_all())
+        norms = _grad_norms(state.model, mesh)
+        sd, slots = gather_state(state.model, state.opt_state, mesh)
+        result["digest"] = _state_digest_of(list(sd.values()) +
+                                            [t for s in slots.values() for t in s.values()])
+        result["tensors"] = _tensor_digests(sd, slots)
+        if mesh.rank == 0:
+            result["fp32"] = dict(metrics={k: float(v) for k, v in metrics.items()}, norms=norms,
+                                  params={k: v.cpu() for k, v in sd.items()},
+                                  cls_out=cls_out.float().cpu())
+        del state, step, sd, slots
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    # the 1-D mode on the same ranks and rows per rank, for its memory
+    half = (rows.stop - rows.start) // 2
+    flat = _train_batch(half, half, 256, SEED + 52 + mesh.rank, f"cuda:{mesh.device.index}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _mesh_state(weights, torch.bfloat16, False, group=dist.group.WORLD,
+                              rows=(half, half))
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 53 + mesh.rank)
+    for _ in range(2):
+        step(state, flat, gen)
+    torch.cuda.synchronize()
+    result["peak_1d"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _mesh_state(weights, torch.bfloat16, False, mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 54)
+    steps = []
+    for _ in range(3):
+        counts.read_all()
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics, cls_out = step(state, mine, gen)
+        torch.cuda.synchronize()
+        vals = {k: float(v) for k, v in metrics.items()}
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, counts=_route_counts(),
+                          collectives=counts.read_all(), loss=vals["total_loss"],
+                          finite=all(v == v and abs(v) < float("inf") for v in vals.values())
+                          and bool(torch.isfinite(cls_out).all()), rows=cls_out.shape[0]))
+    result["bf16"] = steps
+    result["peak_2d"] = torch.cuda.max_memory_allocated() / 2**30
+    sd, slots = gather_state(state.model, state.opt_state, mesh)
+    result["bf16_digest"] = _state_digest_of(list(sd.values()) +
+                                             [t for s in slots.values() for t in s.values()])
+    result["bf16_tensors"] = _tensor_digests(sd, slots)
+    torch.save(result, os.path.join(out, f"rank{mesh.rank}.pt"))
+
+
+def _tensor_digests(sd: dict, slots: dict) -> dict:
+    """Each tensor's sha256 (16 digits) by name, the slots' as slot/name."""
+    tensors = {**sd, **{f"{s}/{k}": t for s, d in slots.items() for k, t in d.items()}}
+    return {k: _state_digest_of([t])[:16] for k, t in tensors.items()}
+
+
+def phase_mesh2d(card: str, weights: dict) -> tuple:
+    """[mesh2d]: the 2-D mode (``parallel.mesh.create_mesh_2d``,
+    ``gspmd_train_step``, the steps' ``mesh``) of UDR18 at 256^2, global
+    batch 10 real + 10 fake. (1) The 1x1 mesh on this card: 3 bf16 steps
+    with the YAML's drop rates through the 2-D code path from one generator
+    seed, against make_train_step's 3 from the same seed: the states
+    (parameters, buffers, slots) equal bit for bit after every step, the
+    launches of K1, K2 and K2-bwd per step (1, 32, 16). (2) With two cards
+    or more, ranks over NCCL, one per card, on a (cards / 2, 2) mesh of
+    two or four cards: the fp32 step against this card's make_train_step on
+    the global batch and draws (the losses and gradient norms at
+    [train-parity-udr18]'s bounds, the gathered parameters and running
+    statistics at [dp-step]'s), the ranks' gathered states bitwise equal,
+    the launches, all_gather and all_reduce calls and bytes per step and
+    rank, the peak memory beside the 1-D mode's on the same ranks, then 3
+    bf16 steps, each finite. On one card (2) is a line that says it did not
+    run. Returns the launches of K1, K2 and K2-bwd of every 2-D step."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from unidefense_torch.parallel.mesh import create_mesh_2d
+    from unidefense_torch.train.perturb import PerturbDraws
+    from unidefense_torch.train.step import StepDraws
+
+    per_k2, _ = per_forward_launches("UDR18", 256, frozenset())
+    want = (1, 4 * per_k2, 2 * per_k2, 0, 0)
+    batch = _train_batch(10, 10, 256, SEED + 50, "cuda")
+    mesh = create_mesh_2d(device="cuda")
+    digests, totals = [], (0, 0, 0)
+    # the card's backward adds with atomics in places (cuDNN's algorithms,
+    # pooling): a bitwise comparison of two runs needs torch's deterministic
+    # mode, where each such op that has a deterministic form takes it
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        # adaptive_avg_pool2d's backward has no deterministic form; at the
+        # extractor's whole-factor pools it writes each input once
+        warnings.filterwarnings("ignore", message=".*not have a deterministic implementation")
+        try:
+            for use_mesh in (False, True):
+                state, step = _mesh_state(weights, torch.bfloat16, False,
+                                          mesh if use_mesh else None)
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+                run = []
+                for _ in range(3):
+                    _reset_counts()
+                    _, metrics, _ = step(state, batch, gen)
+                    torch.cuda.synchronize()
+                    if use_mesh and _route_counts() != want:
+                        raise AssertionError(f"[mesh2d] 1x1: launches K1, K2, K2-bwd, K3, K3-bwd "
+                                             f"{_route_counts()}; expected {want} a step")
+                    totals = tuple(a + b for a, b in zip(totals, _route_counts()[:3])) \
+                        if use_mesh else totals
+                    run.append((_state_digest(state.model, state.opt_state),
+                                float(metrics["total_loss"])))
+                digests.append(run)
+                del state, step
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    if digests[0] != digests[1]:
+        raise AssertionError(f"[mesh2d] 1x1 mesh vs make_train_step: {digests}")
+    log(f"[mesh2d] 1x1 mesh (one card, no group): UDR18 256^2 b10+10 bf16, the YAML's drop "
+        f"rates, 3 two-pass steps through make_train_step(mesh=...) and gspmd_train_step, "
+        f"cuDNN and torch in their deterministic modes: "
+        f"parameters, buffers and slots bit for bit make_train_step's after each (sha256 "
+        f"{digests[1][-1][0][:16]}), losses {[round(l, 5) for _, l in digests[1]]}; launches per "
+        f"step K1 {want[0]} K2 {want[1]} K2-bwd {want[2]}; {card}")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[mesh2d] the sharded legs (1x2 and 2x2 meshes over NCCL) not run: this host has "
+            f"{cards} card; they take a card per rank (NCCL refuses two ranks on one device, "
+            f"and gloo gathers no CUDA tensor); {card}")
+        return totals
+    world = 4 if cards >= 4 else 2
+    draws = PerturbDraws.draw(torch.Generator().manual_seed(SEED + 55), 10, 10,
+                              (20, 256, 256, 3))
+    draws = StepDraws(flip=torch.rand(20, generator=torch.Generator().manual_seed(SEED + 56))
+                      < 0.5, perturb=dataclasses.replace(draws, style=True, freq=True))
+    tmp = tempfile.mkdtemp(prefix="ud_mesh2d_")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        state, step = _mesh_state(weights, torch.float32, True)
+        _, metrics, cls_out = step(state, batch, None, draws)
+        ref = ({k: float(v) for k, v in metrics.items()},
+               {n: float(p.grad.norm()) for n, p in state.model.named_parameters()
+                if p.grad is not None},
+               {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+               cls_out.float().cpu())
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        from unidefense_torch.parallel import launch
+
+        t0 = time.perf_counter()
+        launch(_mesh2d_rank, world, args=(tmp, weights, {k: v.cpu() for k, v in batch.items()},
+                                          draws, MESH_MP), timeout=MESH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    layout = f"{world // MESH_MP}x{MESH_MP}"
+    got = ranks[0]["fp32"]
+    loss_err, loss_worst, grad_err, worst, total = _parity_errors(
+        ref[:2], (got["metrics"], got["norms"]))
+    param_err = stat_err = 0.0
+    for k, v in ref[2].items():
+        if not v.is_floating_point():
+            if not torch.equal(got["params"][k], v):
+                raise AssertionError(f"[mesh2d] {layout} {k}: {got['params'][k]} vs {v}")
+            continue
+        d = float((got["params"][k] - v).abs().max())
+        if "running" in k:
+            stat_err = max(stat_err, d / max(float(v.abs().max()), 1e-12))
+        else:
+            param_err = max(param_err, d)
+    cls_err = float((got["cls_out"] - ref[3]).abs().max())
+    if not (loss_err <= 1e-3 and grad_err <= 1e-2 and param_err <= DP_PARAM_ATOL
+            and stat_err <= DP_STAT_REL and got["cls_out"].shape == ref[3].shape):
+        raise AssertionError(
+            f"[mesh2d] {layout} vs one card: losses max rel {loss_err} at {loss_worst} (tol "
+            f"1e-3), gradient norms {grad_err} at {worst} (tol 1e-2), params {param_err} (tol "
+            f"{DP_PARAM_ATOL}), statistics {stat_err} (tol {DP_STAT_REL}), cls_out "
+            f"{tuple(got['cls_out'].shape)} vs {tuple(ref[3].shape)}")
+    for key in ("tensors", "bf16_tensors"):
+        differ = sorted(k for k, v in ranks[0][key].items()
+                        if any(r[key][k] != v for r in ranks[1:]))
+        if differ:
+            raise AssertionError(f"[mesh2d] {layout}: the ranks' gathered states differ ({key}) "
+                                 f"in {len(differ)} tensors: {differ[:12]}")
+    for r, res in enumerate(ranks):
+        bad = [s["counts"] for s in res["bf16"] if s["counts"] != want]
+        if res["exact"]["counts"] != want or bad:
+            raise AssertionError(f"[mesh2d] {layout} rank {r} launches K1, K2, K2-bwd, K3, "
+                                 f"K3-bwd {res['exact']['counts']}, {bad}; expected {want}")
+        if not all(s["finite"] and s["rows"] == 20 for s in res["bf16"]):
+            raise AssertionError(f"[mesh2d] {layout} rank {r}: bf16 steps {res['bf16']}")
+    totals = tuple(t + sum(s["counts"][i] for res in ranks
+                           for s in [res["exact"]] + res["bf16"]) for i, t in enumerate(totals))
+    log(f"[mesh2d] {layout} mesh over NCCL ({world} cards, a rank each, weights of 65536 "
+        f"elements or more sharded over 'model'), UDR18 256^2 global b10+10 fp32 (TF32 off), "
+        f"one step against this card's make_train_step on the global batch and draws: losses "
+        f"max rel {loss_err:.3g} at {loss_worst} (tol 1e-3), {len(ref[1])} gradient norms "
+        f"{grad_err:.3g} at {worst} (tol 1e-2), gathered parameters max |d| {param_err:.3g} (tol "
+        f"{DP_PARAM_ATOL:.3g}), running statistics max rel {stat_err:.3g} (tol {DP_STAT_REL}), "
+        f"global cls_out max |d| {cls_err:.3g}; the ranks' gathered states bitwise equal "
+        f"(sha256 {ranks[0]['digest'][:16]}); rows per rank "
+        f"{[(r['place'], r['rows']) for r in ranks]}; {card}")
+    for r, res in enumerate(ranks):
+        col = res["exact"]["collectives"]
+        bcol = res["bf16"][-1]["collectives"]
+        log(f"[mesh2d] {layout} rank {r} {res['place']}: per step, calls and bytes, fp32 "
+            f"all_gather {col['all_gather']}, all_reduce {col['all_reduce']}, broadcast "
+            f"{col['broadcast']}; bf16 all_gather {bcol['all_gather']}, all_reduce "
+            f"{bcol['all_reduce']}, broadcast {bcol['broadcast']}; launches per step K1 "
+            f"{want[0]} K2 {want[1]} K2-bwd {want[2]}; peak GiB 2-D bf16 {res['peak_2d']:.3f} "
+            f"against the 1-D mode's {res['peak_1d']:.3f} on the same ranks and rows per rank; "
+            f"bf16 losses {[round(s['loss'], 5) for s in res['bf16']]}, ms "
+            f"{[round(s['ms'], 2) for s in res['bf16']]} (not a speed figure: one sample); {card}")
+    log(f"[mesh2d] {layout}: phase {seconds:.2f} s with the ranks' start; {card}")
+    return totals
 
 
 # the synthetic face anti-spoofing tree of [engine-ocim]: the four OCIM
@@ -3407,6 +3762,7 @@ def main() -> int:
     trained["train-remat"] = phase_train_remat(card, udeb4, udr["UDR18"])
     trained["learn"] = phase_learn(card)
     trained["dp-step"] = phase_dp_step(card, udr["UDR18"])
+    trained["mesh2d"] = phase_mesh2d(card, udr["UDR18"])
     trained["engine-ocim"] = phase_engine_ocim(card, udr["UDR18"])
     trained["engine-ue"] = phase_engine_ue(card, udeb4)
     phase_corrupt(card)
@@ -3416,7 +3772,8 @@ def main() -> int:
     # [train-remat]'s 5 and [learn]'s run, of the engines' runs (their steps
     # and eval batches: FE's five, OCIM's and UE's three), and of the
     # data-parallel paths on both ranks ([dp-step]'s 3 steps,
-    # [engine-fe-dp]'s run)
+    # [engine-fe-dp]'s run), and of the 2-D mode's steps ([mesh2d]'s 1x1
+    # leg, and its ranks' where the host has two cards or more)
     k1_launches, k2_launches, k2_bwd_launches = (sum(c[i] for c in trained.values())
                                                  for i in range(3))
     by_path = {name: dict(zip(("K1", "K2", "K2-bwd"), c[:3])) for name, c in trained.items()}

@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.data import datasets as tds
 from unidefense_torch.data import native as tnative
 from unidefense_torch.data import pipeline as tpipe

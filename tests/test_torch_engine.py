@@ -20,6 +20,7 @@ import yaml
 from tests.test_torch_data import jax_native, udjpeg, write_ffpp  # noqa: F401 (fixtures)
 from tests.test_torch_models import _randomise
 from tests.test_torch_resnet import _scaled
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch import main as tmain
 from unidefense_torch.checkpoint import load_params_only, save_params_only
 from unidefense_torch.config import arg_parser

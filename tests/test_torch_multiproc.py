@@ -25,6 +25,7 @@ from tests.test_torch_ocim import _config as _ocim_config
 from tests.test_torch_ocim import write_fas
 from tests.test_torch_uniattack import _config as _ue_config
 from tests.test_torch_uniattack import write_uniattack
+from tests.torch_tmp import drop_tmp_path, module_tmp  # noqa: F401 (autouse fixture)
 from unidefense_torch import main as tmain
 from unidefense_torch.engines import get_engine
 from unidefense_torch.parallel import launch
@@ -95,18 +96,18 @@ def _assert_shards_as_jax(ranks):
 def fe_run(tmp_path_factory):
     """Two ranks, 4 steps asked, rank 1 alone flagged for preemption at
     step 1: both must stop at step 2, the first sync boundary."""
-    tmp = tmp_path_factory.mktemp("fe-dp")
-    root = write_ffpp(tmp / "ffpp", videos=4, frames=4)
-    work = tmp / "work"
-    work.mkdir()
-    out = tmp / "out"
-    out.mkdir()
-    yml = _fe_yml(str(tmp), root, "dp-run")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")
-        ranks = torch_ranks.spawn(torch_ranks.engine_run, str(out), str(work), _argv(yml),
-                                  1, True)
-    return tmp, root, work, ranks
+    with module_tmp(tmp_path_factory, "fe-dp") as tmp:
+        root = write_ffpp(tmp / "ffpp", videos=4, frames=4)
+        work = tmp / "work"
+        work.mkdir()
+        out = tmp / "out"
+        out.mkdir()
+        yml = _fe_yml(str(tmp), root, "dp-run")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("OMP_NUM_THREADS", "1")
+            ranks = torch_ranks.spawn(torch_ranks.engine_run, str(out), str(work), _argv(yml),
+                                      1, True)
+        yield tmp, root, work, ranks
 
 
 def test_fe_ranks_stop_together_on_a_one_sided_preemption(fe_run):

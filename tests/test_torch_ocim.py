@@ -22,6 +22,7 @@ from tests.test_torch_data import jax_native, udjpeg  # noqa: F401 (fixtures)
 from tests.test_torch_engine import _spread_bottleneck
 from tests.test_torch_models import _randomise
 from tests.test_torch_resnet import _scaled
+from tests.torch_tmp import drop_tmp_path, module_tmp  # noqa: F401 (autouse fixture)
 from unidefense_torch import main as tmain
 from unidefense_torch.data import datasets as tds
 from unidefense_torch.data import native as tnative
@@ -304,16 +305,17 @@ def engines(fas, tmp_path_factory):
     is compiled), in a working directory of their own."""
     from unidefense_tpu.engines import get_engine as jax_get_engine
 
-    tmp = str(tmp_path_factory.mktemp("ocim-engines"))
-    cwd, stdout = os.getcwd(), sys.stdout
-    os.chdir(tmp)
-    try:
-        ref = jax_get_engine("OCIM")(_config(tmp, fas, "jax-run"), stage="Train")
-        got = get_engine("OCIM")(_config(tmp, fas, "port-run"), stage="Train", device="cpu")
-    finally:
-        sys.stdout = stdout
-        os.chdir(cwd)
-    return got, ref
+    with module_tmp(tmp_path_factory, "ocim-engines") as path:
+        tmp = str(path)
+        cwd, stdout = os.getcwd(), sys.stdout
+        os.chdir(tmp)
+        try:
+            ref = jax_get_engine("OCIM")(_config(tmp, fas, "jax-run"), stage="Train")
+            got = get_engine("OCIM")(_config(tmp, fas, "port-run"), stage="Train", device="cpu")
+        finally:
+            sys.stdout = stdout
+            os.chdir(cwd)
+        yield got, ref
 
 
 def test_load_batch_matches_jax(engines):

@@ -17,6 +17,7 @@ import torch
 
 from tests import torch_ranks
 from tests.test_torch_train import _grads, _param_module
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.checkpoint import CheckpointManager
 from unidefense_torch.models import efficientnet as teff
 from unidefense_torch.train import optim as toptim

@@ -23,6 +23,7 @@ from tests.test_torch_serving import _port, udr18  # noqa: F401 (fixture)
 from tests.test_torch_train import _recorder, _snapshot, assert_step_matches
 from tests.test_torch_resnet import _scaled
 from tests.test_torch_udr_train import UDR_STEP_TOL
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.data.pipeline import EpochSampler
 from unidefense_torch.inference import Predictor
 from unidefense_torch.models.convert import state_dict_from_jax

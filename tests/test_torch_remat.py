@@ -17,6 +17,7 @@ import chip_smoke
 from tests import torch_ranks
 from tests.test_torch_models import B0_DELIMITER, _bridge, _init, _nchw, _nhwc, _randomise, _x
 from tests.test_torch_resnet import _scaled
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.data.transforms import DevicePipeline
 from unidefense_torch.models import layers as tl
 from unidefense_torch.models import resnet as tres

@@ -37,6 +37,29 @@ def test_port_imports_nothing_of_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+def test_mesh_2d_imports_nothing_of_jax():
+    """The 2-D mode (parallel/mesh.py's create_mesh_2d, shard_plan, the
+    sharded gather, gspmd_train_step, gather_state, create_hybrid_mesh,
+    and the steps that take its mesh) loads no module of JAX or of the JAX
+    package, at import or when its lazy imports run (a fresh interpreter)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "from unidefense_torch.parallel import mesh\n"
+        "from unidefense_torch.train import step\n"
+        "from unidefense_torch.models.registry import build_model\n"
+        "net = build_model('UDR18', {})\n"
+        "plan = mesh.shard_plan(net, None, 2)\n"
+        "assert mesh.create_mesh_2d(device='cpu').shape == {'data': 1, 'model': 1}\n"
+        "assert mesh.create_hybrid_mesh(device='cpu').shape == {'data': 1, 'model': 1}\n"
+        "assert mesh.MODEL_AXIS == 'model' and mesh.gspmd_train_step and mesh.gather_state\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
 def test_predictor_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -26,6 +26,7 @@ from tests.test_torch_engine import _engine, _keep_stdout, _one_thread, fe_confi
 from tests.test_torch_uniattack import _config as _ue_config
 from tests.test_torch_uniattack import ua  # noqa: F401 (fixture)
 from tests.test_torch_weights import _variables
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.checkpoint import CheckpointManager
 from unidefense_torch.data import datasets as tds
 from unidefense_torch.data.transforms import LockedRNG

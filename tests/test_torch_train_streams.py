@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_tmp import drop_tmp_path, module_tmp  # noqa: F401 (autouse fixture)
 from unidefense_torch.data.transforms import LockedRNG
 from unidefense_torch.engines import get_engine
 
@@ -78,21 +79,22 @@ def train_engines(tmp_path_factory):
     from tests.test_torch_uniattack import write_uniattack
     from unidefense_tpu.engines import get_engine as jax_get_engine
 
-    tmp = str(tmp_path_factory.mktemp("prefetch"))
-    fas = write_fas(os.path.join(tmp, "fas"))
-    ua = write_uniattack(os.path.join(tmp, "ua"))
-    cwd, stdout = os.getcwd(), sys.stdout
-    os.chdir(tmp)
-    try:
-        out = {}
-        for name, cfg in (("OCIM", lambda r: ocim_config(tmp, fas, r)),
-                          ("UE", lambda r: ue_config(tmp, ua, r))):
-            out[name] = (get_engine(name)(cfg(f"port-{name}"), stage="Train", device="cpu"),
-                         jax_get_engine(name)(cfg(f"jax-{name}"), stage="Train"))
-    finally:
-        sys.stdout = stdout
-        os.chdir(cwd)
-    return out
+    with module_tmp(tmp_path_factory, "prefetch") as path:
+        tmp = str(path)
+        fas = write_fas(os.path.join(tmp, "fas"))
+        ua = write_uniattack(os.path.join(tmp, "ua"))
+        cwd, stdout = os.getcwd(), sys.stdout
+        os.chdir(tmp)
+        try:
+            out = {}
+            for name, cfg in (("OCIM", lambda r: ocim_config(tmp, fas, r)),
+                              ("UE", lambda r: ue_config(tmp, ua, r))):
+                out[name] = (get_engine(name)(cfg(f"port-{name}"), stage="Train", device="cpu"),
+                             jax_get_engine(name)(cfg(f"jax-{name}"), stage="Train"))
+        finally:
+            sys.stdout = stdout
+            os.chdir(cwd)
+        yield out
 
 
 @pytest.mark.parametrize("name", ["OCIM", "UE"])

@@ -24,6 +24,7 @@ import torch
 from tests.test_torch_engine import _engine, _keep_stdout, _one_thread, fe_config, ffpp  # noqa: F401
 from tests.test_torch_models import B0_DELIMITER, _nchw, _nhwc, _randomise, _x
 from tests.test_torch_resnet import _scaled
+from tests.torch_tmp import drop_tmp_path  # noqa: F401 (autouse fixture)
 from unidefense_torch.models import convert as tconv
 from unidefense_torch.models.convert import state_dict_from_jax
 from unidefense_torch.models.registry import build_model

@@ -245,3 +245,177 @@ def remat_steps(out: str, state_dict, halves) -> None:
                                                  for k, v in model.state_dict().items()}
         result["digest"] = state_digest(state)
     _save(out, dp, result)
+
+
+# ------------------------------------------------------------------ 2-D mode
+
+def mesh2d_steps(out: str, state_dict, cfg: dict, num_steps: int, frames, labels, draws,
+                 model_parallel: int, min_size: int) -> None:
+    """UDR18 (drop rates 0) from ``state_dict`` on a ('data', 'model') mesh
+    of the world's ranks: the two-pass step, then the single-pass step from
+    the same weights, each once on this rank's rows of the global batch
+    (``frames``, ``labels``) with the global ``draws`` (two-pass, then
+    single-pass). Saves, per step, the metrics, the global cls_out, the
+    gathered state_dict and slots, their digest, this rank's place and the
+    names and shapes it keeps sharded; the state itself on rank 0 only (the
+    ranks' digests show the others equal)."""
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.parallel.mesh import create_mesh_2d, gather_state, gspmd_train_step
+    from unidefense_torch.train.step import (
+        create_train_state, make_normal_train_step, make_train_step)
+
+    torch.set_num_threads(1)
+    mesh = create_mesh_2d(None, model_parallel=model_parallel, device="cpu")
+    n, n_real = len(labels), int((labels == 0).sum())
+    rows = mesh.rows(n)
+    batch = {"image": torch.from_numpy(frames[rows]), "label": torch.from_numpy(labels[rows])}
+    result = {"place": (mesh.data_index, mesh.model_index), "rows": (rows.start, rows.stop)}
+    for name, build, step_draws in (
+            ("two_pass", lambda tx: make_train_step(
+                tx, cfg, num_steps, n_real, n - n_real, preprocess=DevicePipeline(hflip_p=0.5),
+                mesh=mesh), draws[0]),
+            ("single_pass", lambda tx: make_normal_train_step(
+                tx, cfg, n_real, n - n_real, preprocess=DevicePipeline(hflip_p=0.5),
+                mesh=mesh), draws[1])):
+        model = build_model("UDR18", {"drop_rate": 0.0, "feat_drop_rate": 0.0})
+        model.load_state_dict(state_dict, strict=True)
+        tx, _ = toptim.build_optimizer(cfg)
+        state = create_train_state(model, tx, device="cpu")
+        step = gspmd_train_step(build(tx), mesh, state, min_size)
+        state, metrics, cls_out = step(state, batch, None, step_draws)
+        sd, slots = gather_state(state.model, state.opt_state, mesh)
+        result[name] = {
+            "step": state.step, "metrics": {k: float(v) for k, v in metrics.items()},
+            "cls_out": cls_out.clone(), "params": sd if mesh.rank == 0 else None,
+            "slots": slots if mesh.rank == 0 else None,
+            "digest": digest(list(sd.values()) + [t for s in slots.values() for t in s.values()]),
+            "sharded": {k: tuple(p.shape) for k, p in state.model.named_parameters()
+                        if getattr(state.model, "sharded", None)
+                        and state.model.sharded.plan["params"][k] is not None}}
+    result["drawn"] = _drawn_step(cfg, num_steps, state_dict, batch, n_real, n - n_real, mesh)
+    _save(out, mesh, result)
+
+
+GENERATOR_SEED = 11
+
+
+def _drawn_step(cfg: dict, num_steps: int, state_dict, batch: dict, n_real: int, n_fake: int,
+                mesh=None) -> dict:
+    """One two-pass step of UDR18 at its default drop rates from a seeded
+    generator (flips, dropout masks, perturbation all drawn), with ``mesh``
+    on this rank's rows or on the whole batch: its metrics and the
+    generator's state after it."""
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.parallel.mesh import gspmd_train_step
+    from unidefense_torch.train.step import create_train_state, make_train_step
+
+    model = build_model("UDR18", {})
+    model.load_state_dict(state_dict, strict=True)
+    tx, _ = toptim.build_optimizer(cfg)
+    state = create_train_state(model, tx, device="cpu")
+    step = make_train_step(tx, cfg, num_steps, n_real, n_fake,
+                           preprocess=DevicePipeline(hflip_p=0.5), mesh=mesh)
+    if mesh is not None:
+        step = gspmd_train_step(step, mesh, state, 1 << 16)
+    gen = torch.Generator().manual_seed(GENERATOR_SEED)
+    _, metrics, _ = step(state, batch, gen)
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "generator": gen.get_state()}
+
+
+def sharded_layers(out: str, seed: int) -> None:
+    """A Conv2d, a ConvTranspose2d and a Linear sharded over a 1xN mesh of
+    the world's ranks at min_size 1, against an unsharded copy in this
+    process: one forward, backward and Adam (amsgrad) update each. Saves
+    the sharded dims, this rank's place and whether each compared tensor
+    is equal bit for bit."""
+    import copy
+
+    from unidefense_torch.parallel.mesh import create_mesh_2d, gather_state, shard_state
+
+    torch.set_num_threads(1)
+    mesh = create_mesh_2d(None, model_parallel=int(os.environ["WORLD_SIZE"]), device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    torch.manual_seed(seed)
+    net = torch.nn.Sequential(torch.nn.Conv2d(4, 8, 3, padding=1),
+                              torch.nn.ConvTranspose2d(8, 6, 3, 2, 1, 1), torch.nn.Flatten(),
+                              torch.nn.Linear(6 * 8 * 8, 10))
+    ref = copy.deepcopy(net)
+    tx = toptim.Adam(lambda count: 1e-3, amsgrad=True)
+    opt, ref_opt = tx.init(net), tx.init(ref)
+    sharded = shard_state(net, opt, mesh, min_size=1)
+    x = torch.randn(3, 4, 4, 4, generator=gen)
+    c = torch.randn(3, 10, generator=gen)
+    outputs = []
+    for m, o in ((net, opt), (ref, ref_opt)):
+        y = m(x)
+        (y * c).sum().backward()
+        tx.update(m, o)
+        outputs.append(y.detach())
+    sharded.release()
+    dims = {k: d for k, d in sharded.plan["params"].items() if d is not None}
+    equal = {"output": torch.equal(*outputs)}
+    for name, p in net.named_parameters():
+        full = dict(ref.named_parameters())[name]
+        d = dims.get(name)
+        size = p.shape[d] if d is not None else None
+
+        def local(t):
+            return t if d is None else t.narrow(d, mesh.model_index * size, size)
+        equal[f"{name} grad"] = torch.equal(p.grad, local(full.grad))
+        equal[f"{name} updated"] = torch.equal(p.detach(), local(full.detach()))
+        for s in opt.slots:
+            equal[f"{name} {s}"] = torch.equal(opt.slots[s][name], local(ref_opt.slots[s][name]))
+    sd, slots = gather_state(net, opt, mesh)
+    equal["gather_state"] = all(torch.equal(sd[k], v) for k, v in ref.state_dict().items()) and \
+        all(torch.equal(slots[s][k], v) for s in slots for k, v in ref_opt.slots[s].items())
+    _save(out, mesh, {"dims": dims, "place": (mesh.data_index, mesh.model_index),
+                      "equal": equal})
+
+
+def synced_one_process_steps(out: str, state_dict, cfg: dict, num_steps: int, batches,
+                             draws) -> None:
+    """The port's one-process steps (the two-pass, then the single-pass) on
+    each of ``batches`` ((frames, labels), global) with its ``draws`` (a
+    (two-pass, single-pass) pair per batch), in a world of this one rank
+    with the BatchNorms synced over it: the statistics from the sums E[x]
+    and E[x^2] that every data rank of the 2-D mode computes. Saves each
+    step's metrics, cls_out, state_dict and slots."""
+    import torch.distributed as dist
+
+    from unidefense_torch.data.transforms import DevicePipeline
+    from unidefense_torch.models.registry import build_model
+    from unidefense_torch.train.step import (
+        create_train_state, make_normal_train_step, make_train_step)
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="env://", world_size=1, rank=0)
+    results = []
+    for (frames, labels), pair in zip(batches, draws):
+        n_real = int((labels == 0).sum())
+        runs = {}
+        for name, step_draws in zip(("two_pass", "single_pass"), pair):
+            model = build_model("UDR18", {"drop_rate": 0.0, "feat_drop_rate": 0.0})
+            model.load_state_dict(state_dict, strict=True)
+            sync_batchnorm(model, dist.group.WORLD)
+            tx, _ = toptim.build_optimizer(cfg)
+            state = create_train_state(model, tx, device="cpu")
+            pre = DevicePipeline(hflip_p=0.5)
+            step = (make_train_step(tx, cfg, num_steps, n_real, len(labels) - n_real,
+                                    preprocess=pre) if name == "two_pass" else
+                    make_normal_train_step(tx, cfg, n_real, len(labels) - n_real,
+                                           preprocess=pre))
+            state, metrics, cls_out = step(state, {"image": torch.from_numpy(frames),
+                                                   "label": torch.from_numpy(labels)}, None,
+                                           step_draws)
+            runs[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                          "cls_out": cls_out.clone(), "params": state.model.state_dict(),
+                          "slots": state.opt_state.slots}
+        results.append(runs)
+    frames, labels = batches[0]
+    n_real = int((labels == 0).sum())
+    drawn = _drawn_step(cfg, num_steps, state_dict, {"image": torch.from_numpy(frames),
+                                                     "label": torch.from_numpy(labels)},
+                        n_real, len(labels) - n_real)
+    torch.save({"runs": results, "drawn": drawn}, os.path.join(out, "rank0.pt"))

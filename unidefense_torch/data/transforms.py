@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from unidefense_torch.data.native import INTER_CUBIC, INTER_LINEAR, decode_batch, encode_jpeg
 from unidefense_torch.ops.perturb import gaussian_blur
 from unidefense_torch.ops.preprocess import normalize_flip
+from unidefense_torch.parallel.mesh import batch_draw
 
 _RGB_W = np.array([0.299, 0.587, 0.114], dtype=np.float32)  # ITU-R 601 luma
 # the device corruptions of the reference's OneOf lists (dataset/uniattack.py:90-107)
@@ -98,11 +99,13 @@ class CorruptDraws:
 
     @classmethod
     def draw(cls, shape, generator: torch.Generator) -> "CorruptDraws":
-        n, dev = shape[0], generator.device
-        return cls(branch=torch.randint(0, 4, (n,), generator=generator, device=dev),
-                   u=torch.rand(n, generator=generator, device=dev),
-                   k11=torch.rand(n, generator=generator, device=dev) < 0.5,
-                   noise=torch.randn(tuple(shape), generator=generator, device=dev))
+        """Every field from ``generator``, on its device (at the global
+        batch's rows for a ``parallel.mesh.BatchRows`` generator)."""
+        n = (shape[0],)
+        return cls(branch=batch_draw(lambda s, **kw: torch.randint(0, 4, s, **kw), n, generator),
+                   u=batch_draw(torch.rand, n, generator),
+                   k11=batch_draw(torch.rand, n, generator) < 0.5,
+                   noise=batch_draw(torch.randn, shape, generator))
 
 
 def corrupt_oneof(x: torch.Tensor, draws: CorruptDraws) -> torch.Tensor:
@@ -154,7 +157,7 @@ class DevicePipeline:
             draws = CorruptDraws.draw(batch_u8.shape, generator)
         flip = None if flip_mask is None else flip_mask.to(batch_u8.device)
         if flip is None and self.hflip_p > 0 and generator is not None:
-            draw = torch.rand(batch_u8.shape[0], generator=generator, device=generator.device)
+            draw = batch_draw(torch.rand, batch_u8.shape[:1], generator)
             flip = (draw < self.hflip_p).to(batch_u8.device)
         if not self.corrupt:
             return normalize_flip(batch_u8, flip, self.mean, self.std, self.out_dtype)

@@ -94,15 +94,32 @@ def torch_key(path: tuple) -> str:
     raise KeyError(f"unmapped UniDefense path {path}")
 
 
+# the transposes from a JAX kernel to the torch weight: torch dim i holds JAX
+# axis KERNEL_AXES[(ndim, deconv)][i]
+KERNEL_AXES = {
+    (4, False): (3, 2, 0, 1),  # conv (kh, kw, in, out) -> (out, in, kh, kw)
+    (4, True): (2, 3, 0, 1),   # deconv (kh, kw, in, out) -> (in, out, kh, kw)
+    (2, False): (1, 0),        # dense (in, out) -> (out, in)
+}
+
+
+def kernel_axes(ndim: int, deconv: bool = False) -> tuple:
+    """The JAX axis each torch dim of a kernel holds; identity where the
+    converter does not transpose."""
+    return KERNEL_AXES.get((ndim, deconv), tuple(range(ndim)))
+
+
+def jax_last_axis(ndim: int, deconv: bool = False) -> int:
+    """The torch dim of a ``ndim``-d kernel that holds the JAX layout's last
+    (output) axis: 0 for a conv (O, I, kh, kw) and a dense (out, in), 1 for a
+    ConvTranspose (in, out, kh, kw)."""
+    return kernel_axes(ndim, deconv).index(ndim - 1)
+
+
 def _layout(path: tuple, v: np.ndarray) -> np.ndarray:
     v = np.asarray(v, np.float32)
     if path[-1] == "kernel":
-        if v.ndim == 4 and "deconv" in path:  # (kh, kw, in, out) -> (in, out, kh, kw)
-            v = v.transpose(2, 3, 0, 1)
-        elif v.ndim == 4:  # (kh, kw, in, out) -> (out, in, kh, kw)
-            v = v.transpose(3, 2, 0, 1)
-        elif v.ndim == 2:  # dense (in, out) -> (out, in)
-            v = v.T
+        v = v.transpose(kernel_axes(v.ndim, "deconv" in path))
     return np.array(v, np.float32, order="C")  # a writable copy; 0-d stays 0-d
 
 

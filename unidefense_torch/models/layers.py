@@ -24,7 +24,7 @@ from unidefense_torch.device import nchw, nhwc, optional_dtype
 from unidefense_torch.ops.resize import adaptive_avg_pool
 from unidefense_torch.ops.sfconv_cuda import sfconv_freq
 from unidefense_torch.ops.sfconv_rowtiled import sfconv_freq_v4, uses_v4
-from unidefense_torch.parallel.mesh import all_reduce_sum
+from unidefense_torch.parallel.mesh import all_reduce_sum, batch_draw
 
 Padding = Union[str, int]
 
@@ -51,8 +51,10 @@ def _remat_contexts():
 
 
 def _replayed(generator: torch.Generator, state: torch.Tensor) -> torch.Generator:
-    clone = torch.Generator(device=generator.device)
+    clone = type(generator)(device=generator.device)
     clone.set_state(state)
+    if hasattr(generator, "rows"):  # parallel.mesh.BatchRows
+        clone.rows = generator.rows
     return clone
 
 
@@ -188,10 +190,12 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 def uniform(shape, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-    """U[0, 1) of ``shape`` on ``device``, drawn on the generator's device."""
+    """U[0, 1) of the batch-leading ``shape`` on ``device``, drawn on the
+    generator's device (at the global batch's rows for a
+    ``parallel.mesh.BatchRows`` generator)."""
     if generator is None:
         return torch.rand(shape, device=device)
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return batch_draw(torch.rand, shape, generator).to(device)
 
 
 class InstanceNorm(nn.Module):

@@ -58,21 +58,29 @@ class PerturbDraws:
 def perturb_input(x: torch.Tensor, sum_real: int, sum_fake: int,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[PerturbDraws] = None, preserve_color: bool = True,
-                  freq_norm: str = "ortho") -> torch.Tensor:
-    """The perturbed batch, same shape as x (N, H, W, C), real first."""
+                  freq_norm: str = "ortho", source: Optional[torch.Tensor] = None,
+                  rows: Optional[slice] = None) -> torch.Tensor:
+    """The perturbed batch, same shape as x (N, H, W, C), real first. In the
+    2-D mode x holds ``rows`` of the global batch: ``sum_real``, ``sum_fake``
+    and ``draws`` are the global batch's, the per-image draws are cut to
+    ``rows`` and the style partners come from ``source``, the global batch
+    gathered over 'data' (needed for the style mix only)."""
     d = draws if draws is not None else PerturbDraws.draw(generator, sum_real, sum_fake,
                                                           tuple(x.shape))
+    source = x if source is None else source
+    rows = slice(None) if rows is None else rows
     if d.style:
         dev = x.device
-        x_s = torch.cat([x[:sum_real][d.perm_real.to(dev)], x[sum_real:][d.perm_fake.to(dev)]])
+        partners = torch.cat([d.perm_real.to(dev), sum_real + d.perm_fake.to(dev)])
+        x_s = source[partners[rows]]
         if preserve_color:
             x_s = coral(x_s, x)
-        lmda = d.lmda.to(dev)
+        lmda = d.lmda.to(dev)[rows]
         if d.freq:
             return frequency_style_transfer(x, x_s, lmda, norm=freq_norm)
         return spatial_style_transfer(x, x_s, lmda)
     if d.pixel == PIXEL_NOISE:
-        return random_noise(x, d.normal.to(x.device))
+        return random_noise(x, d.normal[rows].to(x.device))
     if d.pixel == PIXEL_BLUR:
         return gaussian_blur(x, 5)
     return downscale(x, 0.75)
