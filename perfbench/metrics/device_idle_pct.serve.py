@@ -1,0 +1,11 @@
+"""Share of the traced cycle in which no kernel, copy or memset ran on the
+card, the union of their intervals taken, in serving."""
+
+KIND = "serve"
+
+
+def read(rec):
+    t = rec["trace"]
+    if rec["kind"] != KIND or not t.get("window_s"):
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
