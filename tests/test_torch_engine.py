@@ -10,6 +10,7 @@ import json
 import os
 import signal
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -222,8 +223,11 @@ def test_profiler_option_writes_a_trace(fe_config, tmp_path):
     cfg = _with_steps(fe_config, tmp_path, num_steps=2, val_steps=10, log_steps=10)
     engine = _engine(cfg, id="profile", profile_start_step=1, profile_steps=1)
     engine.train()
-    files = glob.glob(os.path.join(engine.run_dir, "profile", "**", "*"), recursive=True)
-    assert any(os.path.isfile(f) for f in files)
+    files = [f for f in glob.glob(os.path.join(engine.run_dir, "profile", "**", "*"),
+                                  recursive=True) if os.path.isfile(f)]
+    assert files
+    # the program's spans (unidefense_torch/utils/tracing.py) are in it
+    assert any('"ud.train.step"' in Path(f).read_text() for f in files)
 
 
 def test_weight_files_follow_jax(fe_config, tmp_path):

@@ -30,6 +30,13 @@ from unidefense_torch.models.registry import build_model
 from unidefense_torch.ops.quant import Int8Weights, param_bytes
 from unidefense_torch.parallel.mesh import check_num_devices
 from unidefense_torch.train.step import make_eval_step
+from unidefense_torch.utils.tracing import span
+
+
+def _on(dev: torch.device):
+    """The replica's card as the current device (the kernels launch on the
+    current device); nothing on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def resize_frames(frames_u8: np.ndarray, size: int) -> np.ndarray:
@@ -50,7 +57,9 @@ class Predictor:
     into N equal chunks, every chunk launched on its replica before any is
     waited on, and the probabilities come back in frame order.
     ``batch_size`` must be a multiple of N, and N at most the cards of this
-    host."""
+    host. ``counts`` holds, since construction, the ``frames`` asked for,
+    the batch ``slots`` run (``batch_size`` a batch, padding included) and
+    the ``batches``."""
 
     def __init__(self, model_name: str, model_cfg: Optional[dict] = None,
                  state_dict: Optional[dict] = None, input_size: int = 256,
@@ -80,6 +89,7 @@ class Predictor:
         self.model = model.to(self.device, memory_format=torch.channels_last).eval()
         self.device_tf = DevicePipeline(mean=mean, std=std, hflip_p=0.0)
         self.quantize = quantize
+        self.counts = {"frames": 0, "slots": 0, "batches": 0}
         self._install()
 
     def _replica_devices(self) -> list:
@@ -139,31 +149,40 @@ class Predictor:
 
     def predict_frames(self, frames_u8: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 RGB -> (N,) P(real), in fixed-size batches (the
-        last one padded by repeating its last frame)."""
-        n = frames_u8.shape[0]
-        if frames_u8.shape[1:3] != (self.input_size, self.input_size):
-            frames_u8 = resize_frames(frames_u8, self.input_size)
-        bs = self.batch_size
-        chunk = bs // len(self._replicas)
-        batches = []  # (each replica's probabilities, valid frames), read at the end
-        for start in range(0, n, bs):
-            idx = list(range(start, min(n, start + bs)))
-            n_valid = len(idx)
-            idx += [idx[-1]] * (bs - n_valid)
-            frames = np.ascontiguousarray(frames_u8[idx])
-            parts = []
-            for r, (dev, eval_step, int8) in enumerate(self._replicas):
-                # the kernels launch on the current device: make it the replica's
-                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                    batch = torch.from_numpy(frames[r * chunk:(r + 1) * chunk]).to(dev)
-                    if int8 is not None:
-                        int8.dequantize_into(self.dtype)
-                    parts.append(eval_step(batch)[0])
-            batches.append((parts, n_valid))
-        if not batches:
-            return np.empty(0, np.float32)
-        return torch.cat([torch.cat([p.cpu() for p in parts])[:n_valid]
-                          for parts, n_valid in batches]).numpy()
+        last one padded by repeating its last frame). Adds to ``counts``."""
+        with span("ud.serve.request"):
+            n = frames_u8.shape[0]
+            self.counts["frames"] += n
+            if frames_u8.shape[1:3] != (self.input_size, self.input_size):
+                frames_u8 = resize_frames(frames_u8, self.input_size)
+            bs = self.batch_size
+            chunk = bs // len(self._replicas)
+            batches = []  # (each replica's probabilities, valid frames), read at the end
+            for start in range(0, n, bs):
+                with span("ud.serve.stage"):
+                    idx = list(range(start, min(n, start + bs)))
+                    n_valid = len(idx)
+                    idx += [idx[-1]] * (bs - n_valid)
+                    frames = np.ascontiguousarray(frames_u8[idx])
+                    inputs = []
+                    for r, (dev, _, _) in enumerate(self._replicas):
+                        with _on(dev):
+                            inputs.append(
+                                torch.from_numpy(frames[r * chunk:(r + 1) * chunk]).to(dev))
+                with span("ud.serve.forward"):
+                    parts = []
+                    for (dev, eval_step, int8), batch in zip(self._replicas, inputs):
+                        with _on(dev):
+                            if int8 is not None:
+                                int8.dequantize_into(self.dtype)
+                            parts.append(eval_step(batch)[0])
+                batches.append((parts, n_valid))
+                self.counts["slots"] += bs
+                self.counts["batches"] += 1
+            if not batches:
+                return np.empty(0, np.float32)
+            return torch.cat([torch.cat([p.cpu() for p in parts])[:n_valid]
+                              for parts, n_valid in batches]).numpy()
 
     def predict_video(self, frames_u8: np.ndarray) -> float:
         """Mean frame probability (the reference's video-level rule)."""

@@ -46,6 +46,10 @@ global batch's shape and cut to this rank's rows
 batch's. The metrics and the returned ``cls_out`` are the global batch's,
 the same on every rank.
 
+Each step marks its phases with ``utils.tracing.span``: ``ud.train.step``
+around the call, ``ud.train.forward``, ``ud.train.backward`` and
+``ud.train.update`` in each pass, ``ud.train.perturb`` between the passes.
+
 The model, its optimizer state, the step count and the plateau factor live
 in :class:`TrainState`; the step updates them in place. Randomness comes
 from one explicit ``torch.Generator``; the tests pass the flip mask and the
@@ -68,6 +72,7 @@ from unidefense_torch.parallel.mesh import (
     Mesh2D, all_reduce_mean, batch_rows, gather_rows, mean_gradients, sum_gradients)
 from unidefense_torch.train.optim import Optimizer, OptState
 from unidefense_torch.train.perturb import PerturbDraws, perturb_input
+from unidefense_torch.utils.tracing import span
 
 
 @dataclass
@@ -217,13 +222,14 @@ def _on_rows(body: Callable, mesh: Optional[Mesh2D], n: int) -> Callable:
 
     def train_step(state: TrainState, batch: dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[StepDraws] = None):
-        rows = _rows(mesh, batch, n)
-        gen = generator if rows is None else batch_rows(generator, n, rows)
-        try:
-            return body(state, batch, gen, draws, rows)
-        finally:
-            if gen is not generator:
-                generator.set_state(gen.get_state())
+        with span("ud.train.step"):
+            rows = _rows(mesh, batch, n)
+            gen = generator if rows is None else batch_rows(generator, n, rows)
+            try:
+                return body(state, batch, gen, draws, rows)
+            finally:
+                if gen is not generator:
+                    generator.set_state(gen.get_state())
 
     return train_step
 
@@ -256,66 +262,74 @@ def make_train_step(tx: Optimizer, config_cfg: dict, num_steps: int, sum_real: i
 
         # ---- pass 1 (clean) ----
         _clear_grads(model)
-        out = _global_outputs(model(nchw(x), generator=generator), mesh)
-        ld = out["loss_dict"]
-        aux1 = _shared_losses(out, labels, sum_real, sum_fake)
-        total1 = (aux1["cls_loss"]
-                  + lam_mask * ld["freq_mask"].float().mean()
-                  + lam_mask * ld["spat_mask"].float().mean()
-                  + lam_triplet * aux1["triplet_loss"]
-                  + lam_recons * aux1["real_rec_loss"]
-                  + lam_freq * aux1["real_freq_loss"])
-        aux1["total_loss"] = total1
-        gts = {"freq_mask": ld["freq_mask"].detach(), "spat_mask": ld["spat_mask"].detach(),
-               "factorization": ld["factorization"].detach().float()}
-        cls_out = out["cls_out"].detach()
-        total1.backward()
+        with span("ud.train.forward"):
+            out = _global_outputs(model(nchw(x), generator=generator), mesh)
+            ld = out["loss_dict"]
+            aux1 = _shared_losses(out, labels, sum_real, sum_fake)
+            total1 = (aux1["cls_loss"]
+                      + lam_mask * ld["freq_mask"].float().mean()
+                      + lam_mask * ld["spat_mask"].float().mean()
+                      + lam_triplet * aux1["triplet_loss"]
+                      + lam_recons * aux1["real_rec_loss"]
+                      + lam_freq * aux1["real_freq_loss"])
+            aux1["total_loss"] = total1
+            gts = {"freq_mask": ld["freq_mask"].detach(), "spat_mask": ld["spat_mask"].detach(),
+                   "factorization": ld["factorization"].detach().float()}
+            cls_out = out["cls_out"].detach()
+        with span("ud.train.backward"):
+            total1.backward()
         del out, ld
-        _sync_grads(model, group, mesh)
-        tx.update(model, state.opt_state, state.lr_scale)
+        with span("ud.train.update"):
+            _sync_grads(model, group, mesh)
+            tx.update(model, state.opt_state, state.lr_scale)
 
         # ---- pass 2 (perturbed) ----
-        # the global batch's draws; in the 2-D mode the partners from any rank
-        pd = None if draws is None else draws.perturb
-        if pd is None:
-            pd = PerturbDraws.draw(generator, sum_real, sum_fake, (n, *x.shape[1:]))
-        source = gather_rows([x], mesh)[0] if mesh is not None and pd.style else None
-        noise_x = perturb_input(x, sum_real, sum_fake, draws=pd, preserve_color=preserve_color,
-                                freq_norm=freq_norm, source=source, rows=rows)
+        with span("ud.train.perturb"):
+            # the global batch's draws; in the 2-D mode the partners from any rank
+            pd = None if draws is None else draws.perturb
+            if pd is None:
+                pd = PerturbDraws.draw(generator, sum_real, sum_fake, (n, *x.shape[1:]))
+            source = gather_rows([x], mesh)[0] if mesh is not None and pd.style else None
+            noise_x = perturb_input(x, sum_real, sum_fake, draws=pd,
+                                    preserve_color=preserve_color, freq_norm=freq_norm,
+                                    source=source, rows=rows)
         g1 = None
         if not faithful_grad_accumulation:
             _clear_grads(model)
         elif mesh is not None and mesh.data_group is not None:  # g2 alone is summed
             g1 = [p.grad for p in model.parameters()]
             _clear_grads(model)
-        out = _global_outputs(model(nchw(x), noise_x=nchw(noise_x.contiguous()),
-                                    generator=generator), mesh)
-        ld = out["loss_dict"]
-        losses = _shared_losses(out, labels, sum_real, sum_fake)
-        if cur_step > kl_switch_step:  # mask consistency after 10% of the steps
-            freq_mask_loss = kl_div_log_target(_flat_log_softmax(ld["freq_mask"]),
-                                               _flat_log_softmax(gts["freq_mask"]))
-            spat_mask_loss = kl_div_log_target(_flat_log_softmax(ld["spat_mask"]),
-                                               _flat_log_softmax(gts["spat_mask"]))
-        else:  # sparsity before
-            freq_mask_loss = ld["freq_mask"].float().mean()
-            spat_mask_loss = ld["spat_mask"].float().mean()
-        fac_loss = factorization(ld["factorization"].float(), gts["factorization"])
-        total2 = (0.1 * losses["cls_loss"]
-                  + lam_mask * freq_mask_loss
-                  + lam_mask * spat_mask_loss
-                  + lam_triplet * losses["triplet_loss"]
-                  + lam_recons * 0.1 * losses["real_rec_loss"]
-                  + lam_freq * 0.1 * losses["real_freq_loss"]
-                  + lam_fac * fac_loss)
-        total2.backward()
+        with span("ud.train.forward"):
+            out = _global_outputs(model(nchw(x), noise_x=nchw(noise_x.contiguous()),
+                                        generator=generator), mesh)
+            ld = out["loss_dict"]
+            losses = _shared_losses(out, labels, sum_real, sum_fake)
+            if cur_step > kl_switch_step:  # mask consistency after 10% of the steps
+                freq_mask_loss = kl_div_log_target(_flat_log_softmax(ld["freq_mask"]),
+                                                   _flat_log_softmax(gts["freq_mask"]))
+                spat_mask_loss = kl_div_log_target(_flat_log_softmax(ld["spat_mask"]),
+                                                   _flat_log_softmax(gts["spat_mask"]))
+            else:  # sparsity before
+                freq_mask_loss = ld["freq_mask"].float().mean()
+                spat_mask_loss = ld["spat_mask"].float().mean()
+            fac_loss = factorization(ld["factorization"].float(), gts["factorization"])
+            total2 = (0.1 * losses["cls_loss"]
+                      + lam_mask * freq_mask_loss
+                      + lam_mask * spat_mask_loss
+                      + lam_triplet * losses["triplet_loss"]
+                      + lam_recons * 0.1 * losses["real_rec_loss"]
+                      + lam_freq * 0.1 * losses["real_freq_loss"]
+                      + lam_fac * fac_loss)
+        with span("ud.train.backward"):
+            total2.backward()
         del out, ld
-        _sync_grads(model, group, mesh)
-        if g1 is not None:
-            for p, g in zip(model.parameters(), g1):
-                if g is not None:
-                    p.grad = g if p.grad is None else g.add_(p.grad)
-        tx.update(model, state.opt_state, state.lr_scale)
+        with span("ud.train.update"):
+            _sync_grads(model, group, mesh)
+            if g1 is not None:
+                for p, g in zip(model.parameters(), g1):
+                    if g is not None:
+                        p.grad = g if p.grad is None else g.add_(p.grad)
+            tx.update(model, state.opt_state, state.lr_scale)
 
         state.step = cur_step
         aux2 = {"freq_mask_loss": freq_mask_loss, "spat_mask_loss": spat_mask_loss,
@@ -344,21 +358,24 @@ def make_normal_train_step(tx: Optimizer, config_cfg: dict, sum_real: int, sum_f
         x, labels = _prepare(state, batch, generator, draws, preprocess, rows)
         labels = gather_rows([labels], mesh)[0] if mesh is not None else labels
         _clear_grads(model)
-        out = _global_outputs(model(nchw(x), generator=generator), mesh)
-        ld = out.get("loss_dict", {})
-        aux = _shared_losses(out, labels, sum_real, sum_fake)
-        total = (aux["cls_loss"] + lam_triplet * aux["triplet_loss"]
-                 + lam_recons * aux["real_rec_loss"] + lam_freq * aux["real_freq_loss"])
-        if ld.get("aux_cls_loss") is not None:
-            total = total + lam_aux_cls * ld["aux_cls_loss"]
-        if ld.get("aux_spatial") is not None:  # real-only by contract, at 0.1x
-            total = total + 0.1 * lam_recons * ld["aux_spatial"].mean()
-        if ld.get("aux_freq") is not None:
-            total = total + 0.1 * lam_freq * ld["aux_freq"].mean()
-        aux["total_loss"] = total
-        total.backward()
-        _sync_grads(model, group, mesh)
-        tx.update(model, state.opt_state, state.lr_scale)
+        with span("ud.train.forward"):
+            out = _global_outputs(model(nchw(x), generator=generator), mesh)
+            ld = out.get("loss_dict", {})
+            aux = _shared_losses(out, labels, sum_real, sum_fake)
+            total = (aux["cls_loss"] + lam_triplet * aux["triplet_loss"]
+                     + lam_recons * aux["real_rec_loss"] + lam_freq * aux["real_freq_loss"])
+            if ld.get("aux_cls_loss") is not None:
+                total = total + lam_aux_cls * ld["aux_cls_loss"]
+            if ld.get("aux_spatial") is not None:  # real-only by contract, at 0.1x
+                total = total + 0.1 * lam_recons * ld["aux_spatial"].mean()
+            if ld.get("aux_freq") is not None:
+                total = total + 0.1 * lam_freq * ld["aux_freq"].mean()
+            aux["total_loss"] = total
+        with span("ud.train.backward"):
+            total.backward()
+        with span("ud.train.update"):
+            _sync_grads(model, group, mesh)
+            tx.update(model, state.opt_state, state.lr_scale)
         state.step += 1
         return state, _metrics(aux, group), out["cls_out"].detach()
 

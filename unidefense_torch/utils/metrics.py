@@ -15,8 +15,6 @@ first one +inf).
 from __future__ import annotations
 
 import numpy as np
-from scipy.interpolate import interp1d
-from scipy.optimize import brentq
 
 
 def roc_curve(y_true, y_score, pos_label=1, drop_intermediate=True):
@@ -90,6 +88,11 @@ def cal_metrics(y_trues, y_preds, threshold=0.5):
     y_trues: 0 = real, 1 = fake. y_preds: P(real). threshold: float, 'auto'
     (use the EER threshold) or 'best' (min-ACER sweep).
     """
+    # imported here: scipy.interpolate takes about 2 s to import, and the
+    # train step and Predictor import this package without needing it
+    from scipy.interpolate import interp1d
+    from scipy.optimize import brentq
+
     y_trues = np.asarray(y_trues)
     y_preds = np.asarray(y_preds)
     metrics = {}
